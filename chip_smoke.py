@@ -4,24 +4,37 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU (Hopper: the kernels build for sm_90a) and ``nvcc``.
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
   1. build      compile ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc per
                 source, in parallel) and print ptxas' register/smem report
   2. kernels    each CUDA kernel against its plain PyTorch version on the
-                card, bit-exact, at the main path's real shapes (gesture conv
-                layer M=4*4096 K=144 N=16; optical-flow middle layer
-                M=2*110592 K=288 N=32), scalar and per-channel thresholds,
-                skip_empty on and off, hard and soft reset, T=4 and T=3
-                slabs, all-zero spikes; then CUDA-event timings
+                card at the main paths' real shapes (gesture conv layers
+                M=4*4096 K=18 and K=144 N=16; optical-flow middle layer
+                M=2*110592 K=288 N=32): the integer kernels bit-exact, the
+                float ones within the float tolerance (Vmem atol=rtol=1e-5,
+                spikes equal except where the pre-reset Vmem lies within
+                1e-5 of the threshold, each such spot counted); scalar and
+                per-channel thresholds, every skip mode, hard and soft
+                reset, T=4 and T=3 slabs, 0 % and 10 % random spikes.  Then
+                timings: CUDA events over eager launches (``ms``, host
+                overhead included) and over a CUDA-graph replay of 100
+                launches (``graph_ms``, the device time per launch)
   3. gesture    the Table II gesture network at full width (64x64, T=20,
                 4-bit) serving 8 requests through BatchWorker at capacity 4,
                 t_block 1 and 4, bit-exact with backend="torch" on the card
   4. flow       the optical-flow network at full width (288x384, T=10),
                 B=2, through CompiledSNN.run, t_block 1 and 5, bit-exact
                 with backend="torch"
-  5. a ``kernels`` line: launches on phases 3-4, max error, kernel / plain /
-     bound times per kernel
+  5. quickstart ``repro_torch.launch.quickstart`` at full width (gesture
+                64x64, T=10, batch 4 through the float forward; the unfused
+                kernels on its spike matrices; the facade on 32x32, T=4),
+                then checked: the float forward against the plain float
+                path on the card, layer by layer; unfused == fused; the
+                chip cost equal to the CPU's for the same network; and the
+                zero-skipping spike GEMM timed on the clustered DVS spikes
+  6. a ``kernels`` line: launches on phases 3-5, max error, kernel / plain /
+     bound / library times per kernel
 
 then the card's name and power limit (nvidia-smi) and, last, the line
 ``{"ok": true, "device": {...}}``.  Any mismatch, a kernel that does not
@@ -39,22 +52,52 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 tensor ops/s.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 tensor
+# ops/s, fp32 flop/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+FP32_OPS_PER_S = 67e12
 
+_CSRC = "src/repro_torch/kernels/csrc/"
 KERNEL_INFO = {
     "fused_lif_gemm_int": {
-        "source": "src/repro_torch/kernels/csrc/fused_lif_gemm.cu",
+        "source": _CSRC + "fused_lif_gemm.cu",
         "replaces": "src/repro/kernels/fused_lif_gemm.py:182",
     },
     "fused_lif_gemm_int_tblk": {
-        "source": "src/repro_torch/kernels/csrc/fused_lif_gemm.cu",
+        "source": _CSRC + "fused_lif_gemm.cu",
         "replaces": "src/repro/kernels/fused_lif_gemm.py:400",
     },
+    "fused_lif_gemm": {
+        "source": _CSRC + "fused_lif_gemm.cu",
+        "replaces": "src/repro/kernels/fused_lif_gemm.py:182",
+    },
+    "spike_gemm": {
+        "source": _CSRC + "spike_gemm.cu",
+        "replaces": "src/repro/kernels/spike_gemm.py:134",
+    },
+    "lif_step_fused": {
+        "source": _CSRC + "lif_step.cu",
+        "replaces": "src/repro/kernels/lif_step.py:72",
+    },
+    "lif_step_fused_int": {
+        "source": _CSRC + "lif_step.cu",
+        "replaces": "src/repro/kernels/lif_step.py:72",
+    },
 }
-LIBRARY_NOTE = ("no single PyTorch call computes the fused integer GEMM + "
-                "saturating neuron step")
+LIBRARY_NOTE = {
+    "fused_lif_gemm_int": "no single PyTorch call computes the fused integer "
+                          "GEMM + saturating neuron step",
+    "fused_lif_gemm_int_tblk": "no single PyTorch call computes the fused "
+                               "integer GEMM + saturating neuron step",
+    "fused_lif_gemm": "no single PyTorch call computes the float GEMM + "
+                      "leak/fire/reset neuron step",
+    "spike_gemm": "torch._int_mm (int8 x int8 -> int32, cuBLASLt)",
+    "lif_step_fused": "no single PyTorch call computes leak, integrate, fire "
+                      "and reset with two outputs",
+    "lif_step_fused_int": "no single PyTorch call computes the saturating "
+                          "integer neuron step with two outputs",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -90,15 +133,29 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip()
 
+    # A kernel's tensors go through full-fp32 matrix products on the card:
+    # the plain float versions must not run in TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     kernels = phase_build(card)
     results = phase_kernels(torch, dev, kernels)
+    results.update(phase_unfused_kernels(torch, dev))
     torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launches()  # the main path starts here
+    # Each path runs with the launch counts set to 0 just before it and read
+    # just after; the comparisons with the plain versions come later.
+    kernels.reset_launches()
     phase_gesture(torch, dev)
     phase_flow(torch, dev)
     launches = dict(kernels.LAUNCHES)
-    for name, n in launches.items():
-        check(n > 0, f"the main path never launched {name}")
+    kernels.reset_launches()
+    quick = phase_quickstart(torch, dev)
+    launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
+    emit({"phase": "launches", "paths": "gesture + flow + quickstart",
+          "launches": launches})
+    check_quickstart(torch, dev, quick, results)
+    for name in KERNEL_INFO:
+        check(launches[name] > 0, f"no path launched {name}")
     emit({"kernels": [dict(name=name, route="cuda", launches=launches[name],
                            **KERNEL_INFO[name], **results[name])
                       for name in KERNEL_INFO]})
@@ -113,17 +170,22 @@ def main() -> int:
 # 1. build
 # ---------------------------------------------------------------------------
 def phase_build(card: str):
-    from repro_torch.kernels import _build, fused_lif_gemm
+    from repro_torch import kernels
+    from repro_torch.kernels import _build, fused_lif_gemm, lif_step, spike_gemm
 
     t0 = time.perf_counter()
     logs = _build.build_all()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
-    fused_lif_gemm._fn("spidr_fused_lif_gemm_int")  # load + bind the library
+    sources = {os.path.basename(i["source"])[:-len(".cu")] for i in KERNEL_INFO.values()}
+    check(sources <= set(logs), f"CUDA sources {sorted(sources)} not all built: {sorted(logs)}")
+    for mod, name in ((fused_lif_gemm, "fused_lif_gemm"), (spike_gemm, "spike_gemm"),
+                      (lif_step, "lif_step")):
+        _build.bind(name, mod._SIGNATURES)  # load + bind every library
     emit({"phase": "build", "card": card,
           "seconds": round(time.perf_counter() - t0, 3), "ptxas": ptxas})
-    return fused_lif_gemm
+    return kernels
 
 
 # ---------------------------------------------------------------------------
@@ -164,16 +226,45 @@ def _time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(s, m, k, n, t) -> dict:
-    """Least time for the work: each input read once, each output written
-    once; the operations this data needs (2 per spike per output channel)."""
-    t = t or 1
-    nbytes = t * m * k + k * n + 4 * n + 4 * m * n + 2 * 4 * t * m * n
-    ops = 2 * int((s != 0).sum()) * n
-    mem_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+def _graph_ms(torch, fn, launches: int = 100) -> float:
+    """Device time per launch: CUDA events around the replay of a CUDA
+    graph that holds ``launches`` launches (no host overhead inside)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up: build, load, allocator
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / launches
+
+
+def _roofline(nbytes: int, ops: int, ops_per_s: float) -> dict:
+    """Least time for the work: the larger of bytes over HBM's rate and
+    operations over the card's peak for their type."""
+    mem_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return {"bound_ms": max(mem_ms, ops_ms),
             "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
             "bytes": nbytes, "ops": ops}
+
+
+def _bound(s, m, k, n, t) -> dict:
+    """B1/B2: each input read once, each output written once; the
+    operations this data needs (2 per spike per output channel)."""
+    t = t or 1
+    nbytes = t * m * k + k * n + 4 * n + 4 * m * n + 2 * 4 * t * m * n
+    return _roofline(nbytes, 2 * int((s != 0).sum()) * n, INT8_OPS_PER_S)
 
 
 def phase_kernels(torch, dev, fk):
@@ -217,25 +308,35 @@ def phase_kernels(torch, dev, fk):
     # Timings at the main path's shapes: the network's neuron program
     # (4-bit: 7-bit Vmem), scalar threshold, skip_empty on, 10% random spikes.
     results = {name: {"max_abs_err": max_err[name], "library_ms": None,
-                      "library_note": LIBRARY_NOTE, "shapes": []}
+                      "library_note": LIBRARY_NOTE[name], "shapes": []}
                for name in kernel}
     for shape_name, (m, k, n) in SHAPES.items():
         for name, t in (("fused_lif_gemm_int", None), ("fused_lif_gemm_int_tblk", 4)):
             s, w, v, _ = _inputs(torch, dev, m, k, n, 7, t=t, seed=1)
             kw = dict(leak_shift=3, soft_reset=False, vmem_bits=7)
+            thr = torch.full((n,), 5, dtype=torch.int32, device=dev)
             k_ms = _time_ms(torch, lambda: kernel[name](s, w, v, 5, **kw), 20)
+            g_ms = _graph_ms(torch, lambda: kernel[name](s, w, v, thr, **kw))
             p_ms = _time_ms(torch, lambda: plain[name](s, w, v, 5, **kw), 5)
             row = {"shape": shape_name, "T": t, "M": m, "K": k, "N": n,
-                   "ms": k_ms, "plain_ms": p_ms, **_bound(s, m, k, n, t)}
+                   "ms": k_ms, "graph_ms": g_ms, "plain_ms": p_ms,
+                   **_bound(s, m, k, n, t)}
             results[name]["shapes"].append(row)
             emit({"phase": "kernel_timing", "kernel": name, **row})
             del s, w, v
-    for name, r in results.items():
-        # The headline numbers are the optical-flow middle layer's, the
-        # main path's largest shape.
+    return _headline(results)
+
+
+def _headline(results: dict) -> dict:
+    """The headline numbers are the optical-flow middle layer's, the main
+    paths' largest shape (B5 at that layer's (M, N))."""
+    for r in results.values():
         main = next(x for x in r["shapes"] if x["shape"] == "flow_middle")
-        r.update(ms=main["ms"], plain_ms=main["plain_ms"],
-                 bound_ms=main["bound_ms"], bound_by=main["bound_by"])
+        r.update(ms=main["ms"], graph_ms=main["graph_ms"],
+                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                 bound_by=main["bound_by"])
+        if "library_ms" in main:
+            r["library_ms"] = main["library_ms"]
     return results
 
 
@@ -260,6 +361,154 @@ def _small_engine_check(torch, dev) -> bool:
             check(torch.equal(a.cpu(), b), f"reduced gesture t_block={t_block}: "
                   "card != CPU")
     return True
+
+
+# ---------------------------------------------------------------------------
+# 2b. the unfused kernels (B4, B5) and the float fused kernel (B3)
+# ---------------------------------------------------------------------------
+CHECK_SHAPES = {"gesture_conv1": (4 * 64 * 64, 18, 16), **SHAPES}
+SKIPS = ((True, "reduce"), (True, "bitmap"), (False, "reduce"))
+
+
+def _float_inputs(torch, dev, m, k, n, density=0.1, seed=0):
+    """0/1 float spikes, network-scaled weights, Vmem around the threshold."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = (torch.rand((m, k), generator=g, device=dev) < density).to(torch.float32)
+    w = (torch.rand((k, n), generator=g, device=dev) * 2 - 1) * (3.0 / k ** 0.5)
+    v = torch.randn((m, n), generator=g, device=dev) * 0.3
+    return s, w, v
+
+
+def _pre_reset(v, current, leak):
+    return (v * leak if leak != 1.0 else v) + current
+
+
+def phase_unfused_kernels(torch, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_lif_gemm import fused_lif_gemm
+    from repro_torch.kernels.lif_step import lif_step_fused, lif_step_fused_int
+    from repro_torch.kernels.spike_gemm import spike_gemm
+
+    t0 = time.perf_counter()
+    names = ("fused_lif_gemm", "spike_gemm", "lif_step_fused", "lif_step_fused_int")
+    max_err = dict.fromkeys(names, 0)
+    cases = dict.fromkeys(names, 0)
+    flips = {"fused_lif_gemm": 0, "lif_step_fused": 0}
+
+    def hold_float(name, res, what):
+        check(res["ok"], f"{name} disagrees with plain {what}: {res}")
+        max_err[name] = max(max_err[name], res["max_abs_err"])
+        flips[name] += res["spikes_flipped"]
+        cases[name] += 1
+
+    for shape_name, (m, k, n) in CHECK_SHAPES.items():
+        for density in (0.1, 0.0):
+            s8, w8, _, _ = _inputs(torch, dev, m, k, n, 7, density=density)
+            want = ref.spike_gemm_ref(s8, w8)
+            for skip_empty, mode in SKIPS:
+                got = spike_gemm(s8, w8, skip_empty=skip_empty, skip_mode=mode)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                max_err["spike_gemm"] = max(max_err["spike_gemm"], err)
+                check(err == 0, f"spike_gemm != plain at {shape_name} density="
+                      f"{density} skip_empty={skip_empty} mode={mode}: {err}")
+                cases["spike_gemm"] += 1
+            s, w, v = _float_inputs(torch, dev, m, k, n, density)
+            current = s @ w
+            for leak, soft in ((0.95, False), (1.0, True)):
+                vw, sw = ref.fused_lif_gemm_ref(s, w, v, 0.5, leak, soft)
+                for skip in (True, False):
+                    vg, sg = fused_lif_gemm(s, w, v, 0.5, leak, soft, skip_empty=skip)
+                    torch.cuda.synchronize()
+                    hold_float("fused_lif_gemm", ref.compare_float_step(
+                        vg, sg, vw, sw, _pre_reset(v, current, leak), 0.5),
+                        f"at {shape_name} density={density} leak={leak} "
+                        f"soft={soft} skip={skip}")
+            del s8, w8, s, w, v, current
+        g = torch.Generator(device=dev).manual_seed(7)
+        vf = torch.randn((m, n), generator=g, device=dev) * 0.5
+        cur = torch.randn((m, n), generator=g, device=dev) * 0.5
+        for leak, soft in ((0.95, False), (1.0, True)):
+            vw, sw = ref.lif_step_ref(vf, cur, 0.5, leak, soft)
+            vg, sg = lif_step_fused(vf, cur, 0.5, leak, soft)
+            torch.cuda.synchronize()
+            hold_float("lif_step_fused", ref.compare_float_step(
+                vg, sg, vw, sw, _pre_reset(vf, cur, leak), 0.5),
+                f"at {shape_name} leak={leak} soft={soft}")
+        vi = torch.randint(-64, 64, (m, n), generator=g, device=dev, dtype=torch.int32)
+        pi = torch.randint(-128, 128, (m, n), generator=g, device=dev, dtype=torch.int32)
+        for shift, soft in ((3, False), (0, True), (3, True), (0, False)):
+            want = ref.lif_step_int_ref(vi, pi, 5, shift, soft, 7)
+            got = lif_step_fused_int(vi, pi, 5, shift, soft, 7)
+            torch.cuda.synchronize()
+            for g_, w_ in zip(got, want):
+                err = int((g_.long() - w_.long()).abs().max())
+                max_err["lif_step_fused_int"] = max(max_err["lif_step_fused_int"], err)
+                check(err == 0, f"lif_step_fused_int != plain at {shape_name} "
+                      f"shift={shift} soft={soft}: {err}")
+            cases["lif_step_fused_int"] += 1
+    emit({"phase": "unfused_kernels_vs_plain", "cases": cases,
+          "max_abs_err": max_err, "spikes_flipped_near_threshold": flips,
+          "tolerance": {"int": 0, "float_vmem_atol_rtol": 1e-5,
+                        "float_spike_flip_band": 1e-5},
+          "seconds": round(time.perf_counter() - t0, 3)})
+
+    # Timings at the main paths' shapes, 10 % random spikes.
+    results = {name: {"max_abs_err": max_err[name], "library_ms": None,
+                      "library_note": LIBRARY_NOTE[name], "shapes": []}
+               for name in names}
+    for shape_name, (m, k, n) in SHAPES.items():
+        s8, w8, _, _ = _inputs(torch, dev, m, k, n, 7, seed=1)
+        nnz = int((s8 != 0).sum())
+        row = {"shape": shape_name, "M": m, "K": k, "N": n,
+               "ms": _time_ms(torch, lambda: spike_gemm(s8, w8), 20),
+               "graph_ms": _graph_ms(torch, lambda: spike_gemm(s8, w8)),
+               "graph_ms_by_mode": {
+                   (m_ if skip else "dense"):
+                   _graph_ms(torch, lambda: spike_gemm(s8, w8, skip_empty=skip,
+                                                         skip_mode=m_))
+                   for skip, m_ in SKIPS},
+               "plain_ms": _time_ms(torch, lambda: ref.spike_gemm_ref(s8, w8), 5),
+               **_roofline(m * k + k * n + 4 * m * n, 2 * nnz * n, INT8_OPS_PER_S)}
+        try:
+            lib = torch._int_mm(s8, w8)
+            row["library_max_abs_err"] = int((lib.long() - ref.spike_gemm_ref(
+                s8, w8).long()).abs().max())
+            row["library_ms"] = _time_ms(torch, lambda: torch._int_mm(s8, w8), 20)
+        except RuntimeError as e:  # a timing yardstick only, never used by the port
+            row["library_error"] = str(e).splitlines()[0][:200]
+        results["spike_gemm"]["shapes"].append(row)
+        emit({"phase": "kernel_timing", "kernel": "spike_gemm", **row})
+
+        s, w, v = _float_inputs(torch, dev, m, k, n, seed=1)
+        nnz = int((s != 0).sum())
+        row = {"shape": shape_name, "M": m, "K": k, "N": n,
+               "ms": _time_ms(torch, lambda: fused_lif_gemm(s, w, v, 0.5, 0.95), 20),
+               "graph_ms": _graph_ms(torch, lambda: fused_lif_gemm(s, w, v, 0.5, 0.95)),
+               "plain_ms": _time_ms(torch, lambda: ref.fused_lif_gemm_ref(
+                   s, w, v, 0.5, 0.95), 5),
+               **_roofline(4 * m * k + 4 * k * n + 3 * 4 * m * n, 2 * nnz * n,
+                           FP32_OPS_PER_S)}
+        results["fused_lif_gemm"]["shapes"].append(row)
+        emit({"phase": "kernel_timing", "kernel": "fused_lif_gemm", **row})
+        del s8, w8, s, w
+
+        cur = torch.randn((m, n), device=dev)
+        vi = torch.randint(-64, 64, (m, n), device=dev, dtype=torch.int32)
+        pi = torch.randint(-64, 64, (m, n), device=dev, dtype=torch.int32)
+        for name, fn, plain, ops, peak in (
+                ("lif_step_fused", lambda: lif_step_fused(v, cur, 0.5, 0.95),
+                 lambda: ref.lif_step_ref(v, cur, 0.5, 0.95), 4, FP32_OPS_PER_S),
+                ("lif_step_fused_int", lambda: lif_step_fused_int(vi, pi, 5, 3),
+                 lambda: ref.lif_step_int_ref(vi, pi, 5, 3), 7, INT8_OPS_PER_S)):
+            row = {"shape": shape_name, "M": m, "N": n,
+                   "ms": _time_ms(torch, fn, 20), "graph_ms": _graph_ms(torch, fn),
+                   "plain_ms": _time_ms(torch, plain, 5),
+                   **_roofline(16 * m * n, ops * m * n, peak)}
+            results[name]["shapes"].append(row)
+            emit({"phase": "kernel_timing", "kernel": name, **row})
+        del v, cur, vi, pi
+    return _headline(results)
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +602,150 @@ def phase_flow(torch, dev):
               "readout_abs_sum": int(out.readout.abs().sum()),
               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
               "bit_exact_vs_torch": True})
+
+
+# ---------------------------------------------------------------------------
+# 5. the quickstart at full width, then its checks
+# ---------------------------------------------------------------------------
+def phase_quickstart(torch, dev):
+    from repro_torch.launch import quickstart
+
+    t0 = time.perf_counter()
+    out = quickstart.run(dev, smoke=False,
+                         log=lambda msg: print(msg, file=sys.stderr, flush=True))
+    torch.cuda.synchronize(dev)
+    cost = out["cost"]
+    emit({"phase": "quickstart", "seconds": time.perf_counter() - t0,
+          "events": list(out["events"].shape), "input_sparsity": out["sparsity"],
+          "logits_shape": list(out["logits"].shape),
+          "spikes_per_layer": out["spike_counts"].sum(dim=0).tolist(),
+          "layer_checks": out["layer_checks"],
+          "cost": {"makespan_cycles": cost.makespan_cycles,
+                   "latency_ms_on_chip_model": cost.latency_ms,
+                   "energy_uj_on_chip_model": cost.energy_uj,
+                   "mean_sparsity": cost.mean_sparsity,
+                   "async_speedup": cost.async_speedup},
+          "verify_exact": out["verify_exact"]})
+    check(out["ok"], "quickstart: a step-5 or step-6 check failed")
+    return out
+
+
+def _lockstep_forward(torch, params, events, spec, qspec) -> dict:
+    """The float forward layer by layer: at every layer-timestep the fused
+    kernel and the plain composition take the same input and Vmem, are
+    held to the float tolerance, and the walk goes on with the plain one."""
+    from repro_torch.core import layers as L
+    from repro_torch.core.network import _init_state
+    from repro_torch.core.quant import ste_quantize
+    from repro_torch.kernels.ref import compare_float_step
+
+    state = _init_state(spec, events.shape[1], events.device)
+    tot = {"layer_steps": 0, "outputs": 0, "spikes_flipped": 0,
+           "flipped_off_threshold": 0, "near_threshold": 0, "max_abs_err": 0.0,
+           "ok": True}
+    for x_t in events.to(torch.float32):
+        act, new = x_t, []
+        for i, l in enumerate(spec.layers):
+            if l.kind in ("pool", "adaptive_pool"):
+                kk = 2 if l.kind == "pool" else act.shape[1] // l.target_hw
+                act = L.maxpool2d(act, kk, kk)
+                new.append(None)
+                continue
+            if l.kind == "conv":
+                p, x, fn = l.conv, act, L.spiking_conv
+                cols = L.im2col(x, p.kh, p.kw, p.stride, p.padding)
+            else:
+                p, x, fn = l.fc, act.reshape(act.shape[0], -1), L.spiking_dense
+                cols = x
+            vk, sk = fn(x, params[i], state[i], p, qspec)
+            vp, sp = fn(x, params[i], state[i], p, qspec, matmul=torch.matmul)
+            n = p.neuron
+            current = (cols.reshape(-1, params[i].shape[0])
+                       @ ste_quantize(params[i], qspec.weight_bits)).reshape(vp.shape)
+            res = compare_float_step(vk, sk, vp, sp, _pre_reset(
+                state[i], current, n.leak if n.model == "lif" else 1.0), n.threshold)
+            tot["layer_steps"] += 1
+            tot["outputs"] += vp.numel()
+            for key in ("spikes_flipped", "flipped_off_threshold", "near_threshold"):
+                tot[key] += res[key]
+            tot["max_abs_err"] = max(tot["max_abs_err"], res["max_abs_err"])
+            tot["ok"] = tot["ok"] and res["ok"]
+            new.append(vp)
+            act = sp
+        state = new
+    return tot
+
+
+def check_quickstart(torch, dev, out, results) -> None:
+    import dataclasses
+
+    from repro_torch import spidr
+    from repro_torch.core.network import init_params, run_snn
+    from repro_torch.core.quant import QuantSpec, quantize
+    from repro_torch.kernels.ref import spike_gemm_ref, spike_tile_bitmap
+    from repro_torch.kernels.spike_gemm import CUDA_TILE, spike_gemm
+
+    t0 = time.perf_counter()
+    spec4 = QuantSpec(4)
+    # 1. The full-width float forward against the plain float path (full
+    #    fp32 matmul + neuron_step) on the card: free-running, then layer by
+    #    layer, where every spike flip must sit within 1e-5 of the threshold.
+    logits_p, counts_p = run_snn(out["params"], out["events"], out["run_net"],
+                                 spec4, record_spikes=True, matmul=torch.matmul)
+    free_equal = bool(torch.equal(logits_p, out["logits"])
+                      and torch.equal(counts_p, out["spike_counts"]))
+    lock = _lockstep_forward(torch, out["params"], out["events"], out["run_net"], spec4)
+    check(lock["ok"], f"quickstart float forward: fused kernel vs plain {lock}")
+    check(free_equal or lock["spikes_flipped"] > 0,
+          "quickstart float forward differs from the plain path with no "
+          "near-threshold spike flip to explain it")
+    # 2. unfused == fused (step 5) was checked inside the quickstart (ok).
+    # 3. The chip cost: the same network on the CPU gives the same counts,
+    #    and CompiledSNN.cost on them equals the card run's.
+    compiled = out["compiled"]
+    small = compiled.spec
+    cpu = spidr.compile(small, init_params(torch.Generator().manual_seed(0), small),
+                        compiled.target, device="cpu")
+    cpu_out = cpu.run(out["facade_events"].cpu())
+    check(torch.equal(cpu_out.input_counts, out["facade_result"].input_counts.cpu())
+          and torch.equal(cpu_out.readout, out["facade_result"].readout.cpu()),
+          "quickstart facade: card run != CPU run")
+    cpu_cost = cpu.cost(input_counts=cpu_out.input_counts.numpy() / 2)
+    card_cost = out["cost"]
+    for f in dataclasses.fields(card_cost):
+        if f.name != "pipeline_state":
+            check(getattr(cpu_cost, f.name) == getattr(card_cost, f.name),
+                  f"CompiledSNN.cost.{f.name}: card {getattr(card_cost, f.name)} "
+                  f"!= CPU {getattr(cpu_cost, f.name)}")
+    emit({"phase": "quickstart_check", "float_forward_free_running_equal": free_equal,
+          "float_forward_readout_max_abs_diff": float((logits_p - out["logits"]).abs().max()),
+          "float_forward_layer_by_layer": lock,
+          "unfused_eq_fused": [
+              {"layer": c["layer"], "int": c["int_unfused_eq_fused"],
+               "float": c["float_unfused_vs_fused"]} for c in out["layer_checks"]],
+          "cost_card_eq_cpu": True, "seconds": round(time.perf_counter() - t0, 3)})
+
+    # 4. Zero skipping on clustered DVS spikes: the im2col of the gesture
+    #    events (layer 1) and of layer 1's output spikes (layer 2).
+    dvs = []
+    for i, (name, s) in enumerate(out["spike_matrices"].items()):
+        w, _ = quantize(out["params"][i], spec4)
+        want = spike_gemm_ref(s, w)
+        for skip, mode in SKIPS:
+            check(torch.equal(spike_gemm(s, w, skip_empty=skip, skip_mode=mode), want),
+                  f"spike_gemm on DVS {name} ({mode}, skip={skip}) != plain")
+        bitmap = spike_tile_bitmap(s, CUDA_TILE)
+        row = {"layer": name, "M": s.shape[0], "K": s.shape[1], "N": w.shape[1],
+               "spike_density": float((s != 0).to(torch.float32).mean()),
+               "tiles": bitmap.numel(),
+               "empty_tile_share": 1.0 - float(bitmap.to(torch.float32).mean()),
+               "graph_ms": {("dense" if not skip else mode):
+                            _graph_ms(torch, lambda: spike_gemm(
+                                s, w, skip_empty=skip, skip_mode=mode))
+                            for skip, mode in SKIPS}}
+        dvs.append(row)
+        emit({"phase": "dvs_tile_skip", **row})
+    results["spike_gemm"]["dvs"] = dvs
 
 
 if __name__ == "__main__":

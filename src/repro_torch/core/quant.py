@@ -6,8 +6,10 @@ two's-complement integers; membrane potentials are signed integers twice
 as wide minus one bit.  Integer arithmetic in torch is bit-exact with the
 digital datapath, and with ``repro.core.quant``.
 
-The QAT / straight-through parts of the reference module belong to the
-training slice of the port and are not here yet.
+``ste_quantize`` is the forward of the reference's per-tensor
+straight-through fake-quant (the training-mode forward's weights); its
+gradient, the power-of-two ``po2_*`` quantizers and the rest of QAT come
+with the training slice of the port (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ __all__ = [
     "quantize",
     "sat_add",
     "saturate",
+    "ste_quantize",
 ]
 
 
@@ -56,6 +59,11 @@ class QuantSpec:
     @property
     def v_max(self) -> int:
         return (1 << (self.vmem_bits - 1)) - 1
+
+    @property
+    def neurons_per_row(self) -> int:
+        """The 48-column SRAM array packs 48/W_b weights per row (Eq. 1)."""
+        return 48 // self.weight_bits
 
 
 SUPPORTED_PRECISIONS = tuple(QuantSpec(b) for b in (4, 6, 8))
@@ -102,3 +110,8 @@ def saturate(v: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
 def sat_add(v: torch.Tensor, w: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     """One weight->Vmem accumulation at Vmem precision (saturating)."""
     return saturate(v.to(torch.int32) + w.to(torch.int32), spec)
+
+
+def ste_quantize(w: torch.Tensor, weight_bits: int) -> torch.Tensor:
+    """Per-tensor fake-quant forward: ``dequantize(*quantize(w))``."""
+    return dequantize(*quantize(w, QuantSpec(weight_bits)))

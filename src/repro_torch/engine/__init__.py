@@ -1,4 +1,5 @@
-"""The integer SNN inference engine (single core)."""
+"""The integer SNN inference engine (single core) and its chip cost model."""
+from .cost import EngineCost, estimate_cost
 from .inference import (
     BACKENDS,
     ChunkOutput,

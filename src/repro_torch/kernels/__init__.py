@@ -1,17 +1,23 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-  fused_lif_gemm  spike-GEMM + neuron update in one CUDA kernel, per
-                  timestep or per slab of timesteps (``csrc/fused_lif_gemm.cu``)
+  fused_lif_gemm  spike-GEMM + neuron update in one CUDA kernel: integer,
+                  per timestep or per slab of timesteps, and float
+                  (``csrc/fused_lif_gemm.cu``)
+  spike_gemm      the unfused int8 spike-GEMM with tile zero-skipping
+                  (``csrc/spike_gemm.cu``)
+  lif_step        the unfused elementwise neuron step, float and integer
+                  (``csrc/lif_step.cu``)
+  ops             the public op wrappers over the unfused kernels
   ref             the plain PyTorch version of each kernel
 
 Kernel sources build at first use (``_build.py``) with ``nvcc`` into the
 ignored ``_build/`` directory; importing this package builds nothing.
+:data:`LAUNCHES` counts every kernel launch of the package by entry point.
+The functions ``fused_lif_gemm`` and ``spike_gemm`` are not re-exported
+here: those names are the submodules.
 """
-from .fused_lif_gemm import (
-    DEFAULT_BLOCK,
-    LAUNCHES,
-    fused_lif_gemm_int,
-    fused_lif_gemm_int_tblk,
-    reset_launches,
-)
+from ._build import LAUNCHES, reset_launches
+from .fused_lif_gemm import DEFAULT_BLOCK, fused_lif_gemm_int, fused_lif_gemm_int_tblk
+from .lif_step import lif_step_fused, lif_step_fused_int
+from .ops import lif_step_int_op, lif_step_op, spike_gemm_op
 from .ref import spike_tile_bitmap

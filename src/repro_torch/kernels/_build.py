@@ -1,11 +1,21 @@
-"""Build the CUDA sources in ``csrc/`` at first use and load them.
+"""Build the CUDA sources in ``csrc/`` at first use, load and bind them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Libraries go to ``_build/`` beside
-this file (listed in ``.gitignore``), named by a hash of the source and
-flags, so an edited source rebuilds and an unchanged one is reused.
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+this file (listed in ``.gitignore``), named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source
+rebuilds and an unchanged one is reused.  :func:`build_all` starts one
+``nvcc`` per source, all at once.
+
+The wrappers' shared plumbing lives here too: :func:`bind` sets each C
+function's ``ctypes`` signature, :func:`kernel_device` picks the route
+(None for CPU tensors, which take the plain version; the CUDA device
+otherwise; anything else raises), :func:`check` validates an operand, and
+:func:`raise_on` turns a non-zero ``cudaError_t`` into an exception.  The
+package's one launch counter is :data:`LAUNCHES`: per CUDA entry point,
+the kernel launches since :func:`reset_launches`.  Each wrapper adds one
+(:func:`count_launch`) where it launches its kernel, and nowhere else.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -19,7 +29,10 @@ import pathlib
 import shutil
 import subprocess
 
-__all__ = ["BuildError", "build_all", "load"]
+import torch
+
+__all__ = ["BuildError", "LAUNCHES", "bind", "build_all", "check", "count_launch",
+           "kernel_device", "load", "raise_on", "reset_launches"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -27,6 +40,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict = {}   # source name -> ctypes.CDLL
+_BOUND: dict = {}    # source name -> {symbol: ctypes function}
+
+#: Kernel launches per CUDA entry point since the last :func:`reset_launches`.
+LAUNCHES = {name: 0 for name in (
+    "fused_lif_gemm_int", "fused_lif_gemm_int_tblk", "fused_lif_gemm",
+    "spike_gemm", "lif_step_fused", "lif_step_fused_int")}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
 
 
 class BuildError(RuntimeError):
@@ -44,6 +72,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -98,3 +127,49 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LOADED[name] = lib
     return lib
+
+
+def bind(name: str, signatures: dict) -> dict:
+    """``{symbol: function}`` of ``csrc/<name>.cu`` with ``argtypes`` set
+    from ``signatures`` and an int (``cudaError_t``) result."""
+    fns = _BOUND.get(name)
+    if fns is None:
+        lib = load(name)
+        fns = {}
+        for sym, argtypes in signatures.items():
+            f = getattr(lib, sym)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            fns[sym] = f
+        _BOUND[name] = fns
+    return fns
+
+
+def kernel_device(what: str, *tensors: torch.Tensor):
+    """None when every tensor lies on the CPU; else their CUDA device.
+
+    A tensor on any other device raises: there is no fallback.
+    """
+    devices = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return None
+    for d in devices:
+        if d.type != "cuda":
+            raise ValueError(f"{what} runs on CPU or CUDA tensors, got {d}")
+    return next(d for d in devices if d.type == "cuda")
+
+
+def check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")

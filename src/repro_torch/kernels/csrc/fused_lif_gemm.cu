@@ -1,6 +1,6 @@
-// Fused integer spike-GEMM + neuron update for Hopper (sm_90a).
+// Fused spike-GEMM + neuron update for Hopper (sm_90a).
 //
-// Two kernels, each replacing one Pallas TPU kernel of the JAX package:
+// Three kernels, each replacing one Pallas TPU kernel of the JAX package:
 //
 //   fused_lif_gemm_int_kernel       replaces repro/kernels/fused_lif_gemm.py
 //                                   fused_lif_gemm_int (_fused_int_body via
@@ -8,8 +8,10 @@
 //   fused_lif_gemm_int_tblk_kernel  replaces fused_lif_gemm_int_tblk
 //                                   (_tblk_int_body via _tblk_kernel_scalar /
 //                                   _tblk_kernel_vec, bitmap prologue fused in)
+//   fused_lif_gemm_f32_kernel       replaces fused_lif_gemm (float,
+//                                   _fused_kernel_f32); see its own note below
 //
-// What they compute, for each output (m, n) and timestep:
+// What the two integer kernels compute, for each output (m, n) and timestep:
 //   acc      = sum_k S[m,k] * W[k,n]                  (int32, exact)
 //   partial  = clip(acc, v_min, v_max)                (clipped once, before the add)
 //   v        = v - (v >> leak_shift)  if leak_shift > 0   (arithmetic shift)
@@ -19,9 +21,10 @@
 // The threshold is always an (N,) int32 operand; the wrapper broadcasts a
 // scalar, so one kernel serves the scalar and the per-channel variants.
 //
-// What bounds them on this card: bytes.  Spikes are one byte per (m, k);
-// Vmem in and Vmem/spikes out are four bytes per (m, n).  At the networks'
-// widths (K <= 288, N <= 32) an optical-flow middle layer at B=2 moves
+// What bounds the integer kernels on this card: bytes.  Spikes are one
+// byte per (m, k); Vmem in and Vmem/spikes out are four bytes per (m, n).
+// At the networks' widths (K <= 288, N <= 32) an optical-flow middle
+// layer at B=2 moves
 // about 150 MB for about 4 GOP, some 30 ops per byte, far below the ~590
 // int8 ops per byte where Hopper's tensor cores would become the limit.
 // So the design reads every spike byte once, keeps the weights in shared
@@ -41,19 +44,11 @@
 //     (the chip's Vmem-stationary reuse).
 //   * Ragged M, K and N edges are masked in-kernel; nothing is padded in
 //     device memory.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// The tile loop itself (staging, __dp4a) is spike_tile.cuh, shared with
+// spike_gemm.cu.
+#include "spike_tile.cuh"
 
 namespace {
-
-constexpr int BM = 64;                    // output rows per block
-constexpr int BN = 32;                    // output channels per block: one per lane
-constexpr int BK = 64;                    // fan-in bytes per staged spike tile
-constexpr int THREADS = 256;              // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int ROWS = BM / WARPS;          // rows per thread (row = warp + i*WARPS)
-constexpr int TILE_W_STRIDE = BK / 4 + 4; // words per channel row of a weight tile;
-                                          // the +4 keeps 16-byte loads conflict-free
 
 struct Epilogue {
   int leak_shift;
@@ -61,77 +56,6 @@ struct Epilogue {
   int v_min;
   int v_max;
 };
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return min(max(x, lo), hi);
-}
-
-// Stage the (BM, BK) spike tile at (m0, k0) into shared memory, zero
-// outside (M, K).  Returns whether this thread loaded any spike.
-__device__ __forceinline__ int load_spike_tile(const int8_t* __restrict__ S,
-                                               int M, int K, int64_t m0, int k0,
-                                               int8_t* tile, int vec) {
-  int any = 0;
-  if (vec) {
-    // K % 16 == 0 and S 16-byte aligned: one 16-byte load per thread.
-    const int row = threadIdx.x >> 2, col = (threadIdx.x & 3) * 16;
-    const int64_t m = m0 + row;
-    const int k = k0 + col;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (m < M && k < K) val = *reinterpret_cast<const int4*>(S + m * K + k);
-    *reinterpret_cast<int4*>(tile + row * BK + col) = val;
-    any = (val.x | val.y | val.z | val.w) != 0;
-  } else {
-#pragma unroll
-    for (int j = 0; j < BM * BK / THREADS; ++j) {
-      const int idx = threadIdx.x + j * THREADS;
-      const int row = idx / BK, col = idx % BK;
-      const int64_t m = m0 + row;
-      const int k = k0 + col;
-      const int8_t b = (m < M && k < K) ? S[m * K + k] : int8_t(0);
-      tile[idx] = b;
-      any |= b;
-    }
-  }
-  return any != 0;
-}
-
-// Stage W[k0:k0+rows, n0:n0+BN] transposed: channel n's fan-in bytes are
-// contiguous at wb[n * stride_words * 4 + k], packed four to a word for
-// __dp4a.  Entries outside (K, N) are zero.
-__device__ __forceinline__ void load_weights(const int8_t* __restrict__ W,
-                                             int K, int N, int k0, int rows,
-                                             int n0, int8_t* wb,
-                                             int stride_words) {
-  for (int idx = threadIdx.x; idx < rows * BN; idx += THREADS) {
-    const int k = idx / BN, n = idx % BN;
-    const int gk = k0 + k, gn = n0 + n;
-    wb[n * stride_words * 4 + k] =
-        (gk < K && gn < N) ? W[int64_t(gk) * N + gn] : int8_t(0);
-  }
-}
-
-// acc[i] += S_tile[warp + i*WARPS, :] . W_tile[:, lane] over BK fan-in.
-// w points at this tile's first word in channel row 0.
-__device__ __forceinline__ void mac_tile(const int8_t* tile,
-                                         const int32_t* w, int stride_words,
-                                         int acc[ROWS]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int4* wrow = reinterpret_cast<const int4*>(w + lane * stride_words);
-#pragma unroll
-  for (int q = 0; q < BK / 16; ++q) {
-    const int4 w4 = wrow[q];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int4 s4 =
-          reinterpret_cast<const int4*>(tile + (warp + i * WARPS) * BK)[q];
-      acc[i] = __dp4a(s4.x, w4.x, acc[i]);
-      acc[i] = __dp4a(s4.y, w4.y, acc[i]);
-      acc[i] = __dp4a(s4.z, w4.z, acc[i]);
-      acc[i] = __dp4a(s4.w, w4.w, acc[i]);
-    }
-  }
-}
 
 // The neuron program on one output: returns v', writes the spike.
 __device__ __forceinline__ int neuron(int acc, int v, int thr,
@@ -248,6 +172,173 @@ fused_lif_gemm_int_tblk_kernel(const int8_t* __restrict__ S,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B3: the float fused step.
+//
+// Replaces repro/kernels/fused_lif_gemm.py fused_lif_gemm (_fused_kernel_f32):
+//   acc = S @ W (fp32);  v = leak != 1 ? v * leak : v;  v = v + acc;
+//   s = v >= thr;  v' = soft ? v - s * thr : v * (1 - s).
+// Spikes arrive as the float32 im2col matrix of the training-mode forward.
+//
+// What bounds it on this card: bytes.  Float spikes are four bytes per
+// (m, k): at the optical-flow middle shape the spike matrix alone is 255 MB
+// against ~4 GFLOP if every product were taken, ~12 flop per byte, below
+// the ~20 flop per byte where the CUDA cores' fp32 rate (67 TFLOP/s) would
+// become the limit.  So the design reads each spike once, as B1 does: a
+// block owns a (BM, BN) output tile, stages (BM, FBK) spike tiles and
+// (FBK, BN) weight tiles in shared memory, and keeps ROWS fp32
+// accumulators per thread in registers.  Spike rows are read as float4
+// broadcasts (one shared load serves four fan-in terms for the whole
+// warp); weights one float per lane, conflict-free.
+//
+// Keeping HBM busy: the next tile is fetched into registers (16-byte loads
+// when K % 4 == 0) before the current one is multiplied, so its loads are
+// in flight during the FMAs; and the registers are capped so that
+// F32_MIN_BLOCKS blocks share an SM.  (Loading, waiting and multiplying in
+// turn, one block per SM, ran at ~5x the byte bound.)
+//
+// Numerics: ordinary fp32 FMA in ascending k (no TF32, no tensor cores);
+// with 0/1 spikes each FMA is one rounded add of a weight.  The summation
+// order differs from cuBLAS and XLA, hence the float tolerance.  The
+// epilogue uses __fmul_rn/__fadd_rn/__fsub_rn, which nvcc never contracts
+// into an FMA, so it rounds exactly where the plain version rounds.
+// Empty (BM, FBK) spike tiles are skipped by the block-wide vote of B1.
+// ---------------------------------------------------------------------------
+constexpr int FBK = 32;                           // fan-in floats per staged tile
+constexpr int F_PER_THREAD = BM * FBK / THREADS;  // spike floats staged per thread
+constexpr int W_PER_THREAD = FBK * BN / THREADS;  // weights staged per thread
+constexpr int F32_MIN_BLOCKS = 2;                 // register cap: blocks per SM
+
+// Fetch the (BM, FBK) spike tile and the (FBK, BN) weight tile at k0 into
+// registers, zero outside the matrices.  vec (K % 4 == 0, S 16-byte
+// aligned): float4 j of a thread is float4 number threadIdx.x + j*THREADS
+// of the row-major tile, so a warp reads 4 rows x 128 contiguous bytes;
+// otherwise float j is float number threadIdx.x + j*THREADS.
+__device__ __forceinline__ void fetch_f32(const float* __restrict__ S,
+                                          const float* __restrict__ W, int M,
+                                          int K, int N, int64_t m0, int n0,
+                                          int k0, int vec,
+                                          float (&s)[F_PER_THREAD],
+                                          float (&w)[W_PER_THREAD]) {
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < F_PER_THREAD / 4; ++j) {
+      const int idx = threadIdx.x + j * THREADS;
+      const int64_t m = m0 + idx / (FBK / 4);
+      const int k = k0 + (idx % (FBK / 4)) * 4;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (m < M && k < K) x = *reinterpret_cast<const float4*>(S + m * K + k);
+      s[4 * j] = x.x;
+      s[4 * j + 1] = x.y;
+      s[4 * j + 2] = x.z;
+      s[4 * j + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < F_PER_THREAD; ++j) {
+      const int idx = threadIdx.x + j * THREADS;
+      const int64_t m = m0 + idx / FBK;
+      const int k = k0 + idx % FBK;
+      s[j] = (m < M && k < K) ? S[m * K + k] : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < W_PER_THREAD; ++j) {
+    const int idx = threadIdx.x + j * THREADS;
+    const int gk = k0 + idx / BN, gn = n0 + idx % BN;
+    w[j] = (gk < K && gn < N) ? W[int64_t(gk) * N + gn] : 0.0f;
+  }
+}
+
+// Store fetched registers into the shared tiles, with fetch_f32's index
+// maps.  Returns whether this thread holds any non-zero spike.
+__device__ __forceinline__ int stage_f32(const float (&s)[F_PER_THREAD],
+                                         const float (&w)[W_PER_THREAD],
+                                         float* s_tile, float* w_tile,
+                                         int vec) {
+  int any = 0;
+#pragma unroll
+  for (int j = 0; j < F_PER_THREAD; ++j) any |= (s[j] != 0.0f);
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < F_PER_THREAD / 4; ++j)
+      reinterpret_cast<float4*>(s_tile)[threadIdx.x + j * THREADS] =
+          make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < F_PER_THREAD; ++j) s_tile[threadIdx.x + j * THREADS] = s[j];
+  }
+#pragma unroll
+  for (int j = 0; j < W_PER_THREAD; ++j) w_tile[threadIdx.x + j * THREADS] = w[j];
+  return any;
+}
+
+__global__ void __launch_bounds__(THREADS, F32_MIN_BLOCKS)
+fused_lif_gemm_f32_kernel(const float* __restrict__ S,
+                          const float* __restrict__ W,
+                          const float* __restrict__ V,
+                          float* __restrict__ V_OUT,
+                          float* __restrict__ S_OUT, int M, int K, int N,
+                          float thr, float leak, int soft_reset,
+                          int skip_empty, int vec) {
+  __shared__ __align__(16) float s_tile[BM * FBK];
+  __shared__ __align__(16) float w_tile[FBK * BN];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t m0 = int64_t(blockIdx.x) * BM;
+  const int n0 = blockIdx.y * BN;
+
+  float acc[ROWS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) acc[i] = 0.0f;
+
+  float s_next[F_PER_THREAD], w_next[W_PER_THREAD];
+  fetch_f32(S, W, M, K, N, m0, n0, 0, vec, s_next, w_next);
+  for (int k0 = 0; k0 < K; k0 += FBK) {
+    const int any = stage_f32(s_next, w_next, s_tile, w_tile, vec);
+    // Block-wide vote, also the barrier that publishes both tiles.
+    const int live = __syncthreads_or(any) || !skip_empty;
+    // The next tile's loads are in flight while this one is multiplied.
+    if (k0 + FBK < K)
+      fetch_f32(S, W, M, K, N, m0, n0, k0 + FBK, vec, s_next, w_next);
+    if (live) {
+#pragma unroll
+      for (int q = 0; q < FBK / 4; ++q) {
+        const float w0 = w_tile[(4 * q + 0) * BN + lane];
+        const float w1 = w_tile[(4 * q + 1) * BN + lane];
+        const float w2 = w_tile[(4 * q + 2) * BN + lane];
+        const float w3 = w_tile[(4 * q + 3) * BN + lane];
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) {
+          const float4 s4 = reinterpret_cast<const float4*>(
+              s_tile + (warp + i * WARPS) * FBK)[q];
+          acc[i] = fmaf(s4.x, w0, acc[i]);
+          acc[i] = fmaf(s4.y, w1, acc[i]);
+          acc[i] = fmaf(s4.z, w2, acc[i]);
+          acc[i] = fmaf(s4.w, w3, acc[i]);
+        }
+      }
+    }
+    __syncthreads();  // the next stage overwrites s_tile / w_tile
+  }
+
+  const int n = n0 + lane;
+  if (n >= N) return;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int64_t m = m0 + warp + i * WARPS;
+    if (m < M) {
+      const int64_t idx = m * N + n;
+      float v = V[idx];
+      if (leak != 1.0f) v = __fmul_rn(v, leak);
+      v = __fadd_rn(v, acc[i]);
+      const float s = v >= thr ? 1.0f : 0.0f;
+      V_OUT[idx] = soft_reset ? __fsub_rn(v, __fmul_rn(s, thr))
+                              : __fmul_rn(v, __fsub_rn(1.0f, s));
+      S_OUT[idx] = s;
+    }
+  }
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -262,7 +353,7 @@ extern "C" int spidr_fused_lif_gemm_int(const void* s, const void* w,
                                         void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return int(cudaErrorInvalidValue);
   const Epilogue e{leak_shift, soft_reset, v_min, v_max};
-  const int vec = (K % 16 == 0) && (reinterpret_cast<uintptr_t>(s) % 16 == 0);
+  const int vec = spikes_vectorizable(s, K);
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
   fused_lif_gemm_int_kernel<<<grid, THREADS, 0,
                               static_cast<cudaStream_t>(stream)>>>(
@@ -297,7 +388,7 @@ extern "C" int spidr_fused_lif_gemm_int_tblk(const void* s, const void* w,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return int(err);
   }
-  const int vec = (K % 16 == 0) && (reinterpret_cast<uintptr_t>(s) % 16 == 0);
+  const int vec = spikes_vectorizable(s, K);
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
   fused_lif_gemm_int_tblk_kernel<<<grid, THREADS, smem,
                                    static_cast<cudaStream_t>(stream)>>>(
@@ -305,5 +396,21 @@ extern "C" int spidr_fused_lif_gemm_int_tblk(const void* s, const void* w,
       static_cast<const int32_t*>(v), static_cast<const int32_t*>(thr),
       static_cast<int32_t*>(v_out), static_cast<int32_t*>(s_out), T, M, K, N,
       k_pad, e, skip_empty, vec);
+  return int(cudaGetLastError());
+}
+
+extern "C" int spidr_fused_lif_gemm_f32(const void* s, const void* w,
+                                        const void* v, void* v_out,
+                                        void* s_out, int M, int K, int N,
+                                        float thr, float leak, int soft_reset,
+                                        int skip_empty, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0) return int(cudaErrorInvalidValue);
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  fused_lif_gemm_f32_kernel<<<grid, THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(s), static_cast<const float*>(w),
+      static_cast<const float*>(v), static_cast<float*>(v_out),
+      static_cast<float*>(s_out), M, K, N, thr, leak, soft_reset, skip_empty,
+      (K % 4 == 0) && (reinterpret_cast<uintptr_t>(s) % 16 == 0));
   return int(cudaGetLastError());
 }

@@ -6,10 +6,13 @@ Pallas kernels and oracles; ``chip_smoke.py`` holds the CUDA kernels
 against them on the card.  The kernel wrappers use them only for tensors
 that lie on the CPU.
 
-There is no int32 matrix product on CUDA in PyTorch, so ``S @ W`` is taken
-in float64 and cast back.  That is exact: spikes are 0/1 and weights fit
+There is no int32 matrix product on CUDA in PyTorch, so the integer
+``S @ W`` is taken in float64 and cast back.  That is exact: spikes are 0/1 and weights fit
 in int8, so every partial sum is an integer of magnitude at most
-K * 128, far below 2**53 (and, for the fan-ins here, K <= 288, below 2**24).
+K * 128, far below 2**53 (and, for the fan-ins here, K <= 288, below 2**24).  The float versions
+multiply in float32, as the reference does; on the card that product must
+run in full fp32 (``torch.backends.cuda.matmul.allow_tf32`` False, its
+default), which the callers that compare against a kernel make sure of.
 """
 from __future__ import annotations
 
@@ -19,20 +22,47 @@ import torch.nn.functional as F
 
 __all__ = [
     "DEFAULT_BLOCK",
+    "FLOAT_TOL",
+    "compare_float_step",
     "fused_lif_gemm_int_ref",
     "fused_lif_gemm_int_tblk_ref",
+    "fused_lif_gemm_ref",
     "lif_step_int_ref",
+    "lif_step_ref",
     "spike_gemm_ref",
     "spike_tile_bitmap",
 ]
 
 DEFAULT_BLOCK = (128, 128, 128)  # (bm, bn, bk), the reference's default
 
+#: Float tolerance of a kernel against its plain version: Vmem within
+#: ``atol = rtol = 1e-5``; a spike may differ only where the pre-reset Vmem
+#: lies within ``1e-5`` of the threshold (fp32 sums in another order).
+FLOAT_TOL = 1e-5
+
 
 def spike_gemm_ref(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """int32 ``spikes @ weights`` over the last axis of ``spikes``."""
     acc = torch.matmul(spikes.to(torch.float64), weights.to(torch.float64))
     return acc.to(torch.int32)
+
+
+def lif_step_ref(v, current, threshold=1.0, leak=1.0, soft_reset=False):
+    """The float neuron step: multiplicative leak (when ``leak != 1``),
+    integrate, fire, hard reset ``v*(1-s)`` or soft reset ``v - s*thr``."""
+    if leak != 1.0:
+        v = v * leak
+    v = v + current
+    s = (v >= threshold).to(v.dtype)
+    v_next = v - s * threshold if soft_reset else v * (1.0 - s)
+    return v_next, s
+
+
+def fused_lif_gemm_ref(spikes, weights, v, threshold=1.0, leak=1.0,
+                       soft_reset=False):
+    """Float layer-timestep: float32 ``spikes @ weights``, then the step."""
+    acc = torch.matmul(spikes.to(torch.float32), weights.to(torch.float32))
+    return lif_step_ref(v.to(torch.float32), acc, threshold, leak, soft_reset)
 
 
 def lif_step_int_ref(v, partial, threshold, leak_shift=0, soft_reset=False,
@@ -106,3 +136,26 @@ def spike_tile_bitmap(spikes: torch.Tensor, block: tuple = DEFAULT_BLOCK):
     tiles = s.reshape(t, s.shape[1] // bm, bm, s.shape[2] // bk, bk)
     out = tiles.any(dim=4).any(dim=2).to(torch.int32)
     return out[0] if squeeze else out
+
+
+def compare_float_step(v_got, s_got, v_want, s_want, v_pre, threshold,
+                       tol: float = FLOAT_TOL) -> dict:
+    """Hold a float neuron step ``(v', s)`` against the plain one.
+
+    ``v_pre`` is the plain pre-reset Vmem (``v*leak + I``).  Spikes must be
+    equal except where ``|v_pre - threshold| <= tol``; every such flip is
+    counted.  Vmem must agree within ``atol = rtol = tol`` where the spikes
+    agree (a flipped spike resets one side only).  Returns ``ok``, the
+    counts and the largest absolute Vmem error over agreeing spots.
+    """
+    s_got, s_want = s_got.to(torch.float32), s_want.to(torch.float32)
+    flip = s_got != s_want
+    near = (v_pre.to(torch.float32) - threshold).abs() <= tol
+    same = ~flip
+    err = (v_got - v_want).abs()
+    v_ok = bool((err[same] <= tol + tol * v_want.abs()[same]).all())
+    return {"ok": v_ok and not bool((flip & ~near).any()),
+            "max_abs_err": float(err[same].max()) if bool(same.any()) else 0.0,
+            "spikes_flipped": int(flip.sum()),
+            "flipped_off_threshold": int((flip & ~near).sum()),
+            "near_threshold": int(near.sum())}

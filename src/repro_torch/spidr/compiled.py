@@ -6,9 +6,10 @@ integer engine (``engine.build_engine``) and returns a
 :class:`CompiledSNN` with
 
   ``run(events)``     whole-tensor inference over ``(T, B, H, W, C)``
+  ``cost(result)``    the run priced on the calibrated chip models (one core)
   ``verify(events)``  the engine against the python-loop reference, exact
 
-Streams, save/load, cost models, snapshots and exported (trained)
+Streams, save/load, multi-core plans, snapshots and exported (trained)
 networks belong to later slices of the port (ROADMAP A6, A7, A5).
 """
 from __future__ import annotations
@@ -16,10 +17,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..core.network import SNNSpec
+from ..engine.cost import EngineCost, estimate_cost
 from ..engine.inference import (
     EngineConfig,
     EngineOutput,
@@ -91,6 +94,25 @@ class CompiledSNN:
         if self.target.backend == "reference":
             return run_reference(self.engine, events)
         return run_engine(self.engine, events)
+
+    def cost(self, result=None, input_counts=None) -> EngineCost:
+        """Price a run on the calibrated chip models (one SpiDR core).
+
+        Pass the :class:`~repro_torch.engine.EngineOutput` from :meth:`run`
+        (or any object with per-timestep ``input_counts``), or a raw
+        ``(T, n_weight_layers)`` tensor or array via ``input_counts``.  The
+        models are host-side numpy: the counts are copied to the host.
+        """
+        if input_counts is None:
+            if result is None or getattr(result, "input_counts", None) is None:
+                raise ValueError(
+                    "cost() needs spike statistics: pass the EngineOutput "
+                    "from run(), or a raw (T, n_weight_layers) array via "
+                    "input_counts=")
+            input_counts = result.input_counts
+        if isinstance(input_counts, torch.Tensor):
+            input_counts = input_counts.cpu().numpy()
+        return estimate_cost(self.spec, self.target.qspec, np.asarray(input_counts))
 
     def verify(self, events=None, batch: int = 2, seed: int = 0) -> VerifyReport:
         """Check the deployment against the python-loop reference, exactly.

@@ -28,14 +28,17 @@ def jax_ref():
 
         from repro import spidr, serving
         from repro.configs import spidr_gesture, spidr_optflow
-        from repro.core import layers, network, neuron, quant
-        from repro.engine import inference
-        from repro.kernels import fused_lif_gemm, ref
+        from repro.core import (cim_macro, energy, layers, modes, network, neuron,
+                                pipeline, quant)
+        from repro.engine import cost, inference
+        from repro.kernels import fused_lif_gemm, lif_step, ref, spike_gemm
         from repro.snn import data
     return types.SimpleNamespace(
         jax=jax, jnp=jnp, spidr=spidr, serving=serving, quant=quant,
         neuron=neuron, layers=layers, network=network, engine=inference,
         kernels=fused_lif_gemm, ref=ref, data=data,
+        spike_gemm=spike_gemm, lif_step=lif_step, modes=modes, energy=energy,
+        pipeline=pipeline, cost=cost, cim_macro=cim_macro,
         spidr_gesture=spidr_gesture, spidr_optflow=spidr_optflow)
 
 
