@@ -33,8 +33,31 @@ Phases, each printing JSON lines:
                 path on the card, layer by layer; unfused == fused; the
                 chip cost equal to the CPU's for the same network; and the
                 zero-skipping spike GEMM timed on the clustered DVS spikes
-  6. a ``kernels`` line: launches on phases 3-5, max error, kernel / plain /
-     bound / library times per kernel
+  6. lm kernels the LM stack's kernels against their plain versions on the
+                card: the RWKV6 wkv (B7) at H=64, N=64, chunk 32, S in
+                {32, 64, 512}, B in {1, 4}, rtol 2e-4 / atol 2e-5 on y and
+                the state; quant_matmul (B6, int8 and int4) at the rwkv6-7b
+                channel-mix shape (K=4096, N=14336), M in {4, 512}, weights
+                quantized per output channel, rtol = atol = 1e-4, plus
+                ragged shapes.  Timed as in phase 2, with the library
+                yardstick for B6 (``torch.matmul`` on the dequantized weight)
+  7. lm         rwkv6-7b at full published width (32 layers, d_model 4096,
+                random weights from a seed, bfloat16 serving copies) serving
+                8 requests of 64 tokens (8 new each) through the port's
+                Server at capacity 4; every prefill launches B7 once per
+                layer.  Then the served model's layer-0 channel-mix key
+                projection on the 4 slots' last inputs through
+                ``ops.quant_matmul_op`` (int8 and int4, per-channel scales)
+  8. lm check   one 512-token prefill layer by layer: each layer's r, k, v,
+                lw through B7 and the plain wkv, held to B7's tolerance, the
+                walk going on with the plain one; the logits of the kernel
+                route against the plain route's; the served tokens against
+                a plain-route Server's (a difference is allowed only where
+                the plain route's top-2 logit gap is within twice the two
+                routes' largest bfloat16 logit difference); in float32
+                compute, the two routes' logits within 1e-3 of the largest
+  9. a ``kernels`` line: launches on phases 3-5 and 7, max error, kernel /
+     plain / bound / library times per kernel
 
 then the card's name and power limit (nvidia-smi) and, last, the line
 ``{"ok": true, "device": {...}}``.  Any mismatch, a kernel that does not
@@ -84,6 +107,18 @@ KERNEL_INFO = {
         "source": _CSRC + "lif_step.cu",
         "replaces": "src/repro/kernels/lif_step.py:72",
     },
+    "quant_matmul_int8": {
+        "source": _CSRC + "quant_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul.py:123",
+    },
+    "quant_matmul_int4": {
+        "source": _CSRC + "quant_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul.py:123",
+    },
+    "wkv_sequence": {
+        "source": _CSRC + "wkv_chunk.cu",
+        "replaces": "src/repro/kernels/wkv_chunk.py:91",
+    },
 }
 LIBRARY_NOTE = {
     "fused_lif_gemm_int": "no single PyTorch call computes the fused integer "
@@ -97,6 +132,9 @@ LIBRARY_NOTE = {
                       "and reset with two outputs",
     "lif_step_fused_int": "no single PyTorch call computes the saturating "
                           "integer neuron step with two outputs",
+    "quant_matmul_int8": "torch.matmul(x, w_deq) on a pre-dequantized fp32 weight",
+    "quant_matmul_int4": "torch.matmul(x, w_deq) on a pre-dequantized fp32 weight",
+    "wkv_sequence": "no single PyTorch call computes the chunked RWKV6 wkv",
 }
 
 
@@ -151,9 +189,15 @@ def main() -> int:
     kernels.reset_launches()
     quick = phase_quickstart(torch, dev)
     launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
-    emit({"phase": "launches", "paths": "gesture + flow + quickstart",
-          "launches": launches})
     check_quickstart(torch, dev, quick, results)
+    results.update(phase_lm_kernels(torch, dev))
+    lm = lm_model(torch, dev)
+    kernels.reset_launches()
+    phase_lm(torch, dev, kernels, lm)
+    launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
+    emit({"phase": "launches", "paths": "gesture + flow + quickstart + lm",
+          "launches": launches})
+    check_lm(torch, dev, lm)
     for name in KERNEL_INFO:
         check(launches[name] > 0, f"no path launched {name}")
     emit({"kernels": [dict(name=name, route="cuda", launches=launches[name],
@@ -171,7 +215,8 @@ def main() -> int:
 # ---------------------------------------------------------------------------
 def phase_build(card: str):
     from repro_torch import kernels
-    from repro_torch.kernels import _build, fused_lif_gemm, lif_step, spike_gemm
+    from repro_torch.kernels import (_build, fused_lif_gemm, lif_step, quant_matmul,
+                                     spike_gemm, wkv_chunk)
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -181,7 +226,8 @@ def phase_build(card: str):
     sources = {os.path.basename(i["source"])[:-len(".cu")] for i in KERNEL_INFO.values()}
     check(sources <= set(logs), f"CUDA sources {sorted(sources)} not all built: {sorted(logs)}")
     for mod, name in ((fused_lif_gemm, "fused_lif_gemm"), (spike_gemm, "spike_gemm"),
-                      (lif_step, "lif_step")):
+                      (lif_step, "lif_step"), (quant_matmul, "quant_matmul"),
+                      (wkv_chunk, "wkv_chunk")):
         _build.bind(name, mod._SIGNATURES)  # load + bind every library
     emit({"phase": "build", "card": card,
           "seconds": round(time.perf_counter() - t0, 3), "ptxas": ptxas})
@@ -747,6 +793,380 @@ def check_quickstart(torch, dev, out, results) -> None:
         emit({"phase": "dvs_tile_skip", **row})
     results["spike_gemm"]["dvs"] = dvs
 
+
+# ---------------------------------------------------------------------------
+# 6. the LM stack's kernels (B6, B7) against their plain versions, timed
+# ---------------------------------------------------------------------------
+WKV_TOL = {"rtol": 2e-4, "atol": 2e-5}
+QMM_TOL = {"rtol": 1e-4, "atol": 1e-4}
+# Float32 compute, kernel route against plain route, 32 layers: B7's fp32
+# differences (within WKV_TOL) carried through the layers.
+FP32_LOGIT_REL = 1e-3
+LM_HEADS, LM_HEAD_SIZE, LM_CHUNK = 64, 64, 32
+CM_SHAPE = (4096, 14336)  # rwkv6-7b channel-mix key projection (K, N)
+
+
+def _tol_ratio(torch, got, want, tol) -> float:
+    """max |got - want| / (atol + rtol |want|): <= 1 is within tolerance."""
+    err = (got - want).abs()
+    return float((err / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def _wkv_inputs(torch, dev, seed, b, s, h=LM_HEADS, n=LM_HEAD_SIZE):
+    """tests/test_wkv_kernel.py's draws at full width."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(b, s, h, n)).astype(np.float32) for _ in range(3))
+    lw = -rng.uniform(0.01, 1.0, (b, s, h, n)).astype(np.float32)
+    u = rng.normal(size=(h, n)).astype(np.float32)
+    s0 = rng.normal(size=(b, h, n, n)).astype(np.float32) * np.float32(0.1)
+    return [torch.from_numpy(a).to(dev) for a in (r, k, v, lw, u, s0)]
+
+
+def _wkv_bound(b, s, h, n, c) -> dict:
+    """Bytes: r, k, v, lw and y once, u, S0 and S1 once.  fp32 operations
+    per chunk-head: 2CN^2 inter, ~1.5C^2N for the decay matrix, 2C^2N for
+    A v, 2CN^2 for the state."""
+    nbytes = 4 * (5 * b * s * h * n + h * n + 2 * b * h * n * n)
+    ops = (b * h * (s // c)) * (4 * c * n * n + 3.5 * c * c * n)
+    return _roofline(nbytes, int(ops), FP32_OPS_PER_S)
+
+
+def _qmm_bound(m, k, n, bits) -> dict:
+    nbytes = 4 * m * k + (k * n if bits == 8 else k * n // 2) + 4 * n + 4 * m * n
+    return _roofline(nbytes, 2 * m * k * n, FP32_OPS_PER_S)
+
+
+def phase_lm_kernels(torch, dev):
+    from repro_torch.core.quant import QuantSpec, quantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.wkv_chunk import wkv_sequence
+
+    t0 = time.perf_counter()
+    results = {name: {"max_abs_err": 0.0, "library_ms": None,
+                      "library_note": LIBRARY_NOTE[name], "shapes": []}
+               for name in ("wkv_sequence", "quant_matmul_int8", "quant_matmul_int4")}
+    worst = dict.fromkeys(results, 0.0)
+    for b, s in ((1, 32), (1, 64), (1, 512), (4, 32), (4, 512)):
+        ins = _wkv_inputs(torch, dev, b * 1000 + s, b, s)
+        got = wkv_sequence(*ins, chunk=LM_CHUNK)
+        want = ref.wkv_sequence_ref(*ins, LM_CHUNK)
+        torch.cuda.synchronize()
+        ratio = max(_tol_ratio(torch, g, w, WKV_TOL) for g, w in zip(got, want))
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(ratio <= 1.0, f"wkv_sequence != plain at B={b} S={s}: max abs err "
+              f"{err}, {ratio:.3f} x the tolerance {WKV_TOL}")
+        results["wkv_sequence"]["max_abs_err"] = max(results["wkv_sequence"]["max_abs_err"], err)
+        worst["wkv_sequence"] = max(worst["wkv_sequence"], ratio)
+        row = {"shape": f"B={b} S={s}", "B": b, "S": s, "H": LM_HEADS,
+               "N": LM_HEAD_SIZE, "chunk": LM_CHUNK, "max_abs_err": err,
+               "tol_ratio": ratio,
+               "ms": _time_ms(torch, lambda: wkv_sequence(*ins, chunk=LM_CHUNK), 20),
+               "graph_ms": _graph_ms(torch, lambda: wkv_sequence(*ins, chunk=LM_CHUNK)),
+               "plain_ms": _time_ms(torch, lambda: ref.wkv_sequence_ref(*ins, LM_CHUNK), 3),
+               **_wkv_bound(b, s, LM_HEADS, LM_HEAD_SIZE, LM_CHUNK)}
+        results["wkv_sequence"]["shapes"].append(row)
+        emit({"phase": "kernel_timing", "kernel": "wkv_sequence", **row})
+        del ins, got, want
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    # Ragged shapes (every edge masked in the kernel), full-range weights.
+    for m, k, n in ((16, 64, 32), (130, 514, 258), (33, 96, 1000)):
+        x = torch.randn((m, k), generator=g, device=dev)
+        sc = torch.rand((n,), generator=g, device=dev) * 0.01 + 1e-4
+        for bits in (8, 4):
+            lo = -(1 << (bits - 1))
+            w = torch.randint(lo, -lo, (k, n), generator=g, device=dev, dtype=torch.int8)
+            wq = w if bits == 8 else ref.pack_int4(w)
+            got = quant_matmul(x, wq, sc, bits)
+            want = ref.quant_matmul_ref(x, wq, sc, bits)
+            torch.cuda.synchronize()
+            ratio = _tol_ratio(torch, got, want, QMM_TOL)
+            check(ratio <= 1.0, f"quant_matmul int{bits} != plain at {(m, k, n)}: "
+                  f"{ratio:.3f} x the tolerance {QMM_TOL}")
+            worst[f"quant_matmul_int{bits}"] = max(worst[f"quant_matmul_int{bits}"], ratio)
+    # The channel-mix shape: a dense_init weight quantized per output channel.
+    k, n = CM_SHAPE
+    w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+    for bits in (8, 4):
+        name = f"quant_matmul_int{bits}"
+        q, sc = quantize(w, QuantSpec(bits), axis=0)
+        sc = sc.reshape(-1)
+        wq = q if bits == 8 else ref.pack_int4(q)
+        w_deq = q.to(torch.float32) * sc  # the library yardstick's weight
+        for m in (4, 512):
+            x = torch.randn((m, k), generator=g, device=dev)
+            got = quant_matmul(x, wq, sc, bits)
+            want = ref.quant_matmul_ref(x, wq, sc, bits)
+            lib = torch.matmul(x, w_deq)
+            torch.cuda.synchronize()
+            ratio = _tol_ratio(torch, got, want, QMM_TOL)
+            err = float((got - want).abs().max())
+            check(ratio <= 1.0, f"{name} != plain at M={m}: max abs err {err}, "
+                  f"{ratio:.3f} x the tolerance {QMM_TOL}")
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            worst[name] = max(worst[name], ratio)
+            row = {"shape": f"M={m}", "M": m, "K": k, "N": n, "bits": bits,
+                   "max_abs_err": err, "tol_ratio": ratio,
+                   "ms": _time_ms(torch, lambda: quant_matmul(x, wq, sc, bits), 20),
+                   "graph_ms": _graph_ms(torch, lambda: quant_matmul(x, wq, sc, bits)),
+                   "plain_ms": _time_ms(torch, lambda: ref.quant_matmul_ref(
+                       x, wq, sc, bits), 5),
+                   "library_ms": _time_ms(torch, lambda: torch.matmul(x, w_deq), 20),
+                   "library_max_abs_err": float((lib - want).abs().max()),
+                   **_qmm_bound(m, k, n, bits)}
+            results[name]["shapes"].append(row)
+            emit({"phase": "kernel_timing", "kernel": name, **row})
+        del q, wq, w_deq
+    emit({"phase": "lm_kernels_vs_plain", "tolerance": {"wkv": WKV_TOL,
+                                                        "quant_matmul": QMM_TOL},
+          "worst_tol_ratio": worst, "seconds": round(time.perf_counter() - t0, 3)})
+    # Headlines at the main path's shapes: a served prompt's prefill (B=1,
+    # S=64) for B7, the decode slots' channel-mix (M=4) for B6.
+    for name, shape in (("wkv_sequence", "B=1 S=64"), ("quant_matmul_int8", "M=4"),
+                        ("quant_matmul_int4", "M=4")):
+        main = next(x for x in results[name]["shapes"] if x["shape"] == shape)
+        results[name].update({key: main[key] for key in (
+            "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")})
+        if name != "wkv_sequence":
+            results[name]["library_ms"] = main["library_ms"]
+    return results
+
+
+# ---------------------------------------------------------------------------
+# 7. rwkv6-7b at full width, served through the port's Server
+# ---------------------------------------------------------------------------
+LM_REQUESTS, LM_CAPACITY, LM_PROMPT, LM_NEW, LM_CTX = 8, 4, 64, 8, 128
+
+
+def _lm_requests(cfg):
+    import numpy as np
+
+    from repro_torch.launch.serve import Request
+
+    rng = np.random.default_rng(1)
+    return [Request(rid=i, max_new=LM_NEW, prompt=rng.integers(
+        0, cfg.vocab_size, LM_PROMPT).astype(np.int32)) for i in range(LM_REQUESTS)]
+
+
+def _serve_lm(torch, dev, cfg, params, use_kernel=None):
+    from repro_torch.launch.serve import Server
+
+    server = Server(cfg, params, capacity=LM_CAPACITY, ctx_len=LM_CTX,
+                    use_kernel=use_kernel)
+    for req in _lm_requests(cfg):
+        server.submit(req)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    while server.step():
+        pass
+    torch.cuda.synchronize(dev)
+    return server, time.perf_counter() - t0
+
+
+def lm_model(torch, dev) -> dict:
+    """rwkv6-7b at full width: float32 masters from a seed, their bfloat16
+    serving copies, and one short request served to warm the caches up
+    (kernel loads, cuBLAS heuristics) before the timed run."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import model as M
+
+    cfg = get_config("rwkv6-7b")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    masters = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    params = M.serving_params(masters)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    warm = Server(cfg, params, capacity=LM_CAPACITY, ctx_len=LM_CTX)
+    warm.submit(Request(rid=0, max_new=2, prompt=np.arange(LM_PROMPT, dtype=np.int32)))
+    while warm.step():
+        pass
+    return {"cfg": cfg, "masters": masters, "params": params, "init_s": init_s,
+            "n_params": sum(t.numel() for t in _leaves(masters))}
+
+
+def phase_lm(torch, dev, kernels, lm) -> None:
+    from repro_torch.core.quant import QuantSpec, quantize
+    from repro_torch.kernels import ops, ref
+
+    cfg, params, init_s, n_params = lm["cfg"], lm["params"], lm["init_s"], lm["n_params"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    server, seconds = _serve_lm(torch, dev, cfg, params)
+    done = {r.rid: r.generated for r in server.done}
+    check(sorted(done) == list(range(LM_REQUESTS)), "lm: not every request served")
+    check(all(len(t) == LM_NEW and all(0 <= x < cfg.vocab_size for x in t)
+              for t in done.values()), "lm: a request's tokens are wrong in number or range")
+    lm["server"] = server
+    wkv = kernels.LAUNCHES["wkv_sequence"]
+    check(wkv == cfg.n_layers * server.prefills,
+          f"lm: wkv_sequence launched {wkv} times for {server.prefills} prefills "
+          f"of {cfg.n_layers} layers")
+    tokens = sum(len(t) for t in done.values())
+    emit({"phase": "lm_serve", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "params": n_params, "init_and_cast_seconds": init_s,
+          "requests": LM_REQUESTS, "capacity": LM_CAPACITY, "prompt_len": LM_PROMPT,
+          "max_new": LM_NEW, "tokens": tokens, "serve_seconds": seconds,
+          "tokens_per_s": tokens / seconds, "prefills": server.prefills,
+          "prefill_seconds": server.prefill_seconds,
+          "prefill_ms_each": 1e3 * server.prefill_seconds / server.prefills,
+          "decode_steps": server.decode_steps, "decode_seconds": server.decode_seconds,
+          "decode_ms_each": 1e3 * server.decode_seconds / server.decode_steps,
+          "wkv_launches": wkv, "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
+
+    # The served model's layer-0 channel-mix key projection, on the decode
+    # slots' last channel-mix inputs, through quant_matmul_op.
+    x = server.cache["x_cm"][0].to(torch.float32)          # (capacity, d_model)
+    w = params["blocks"]["layers"]["rwkv"].cm_wk[0].to(torch.float32)
+    dense = x @ w
+    cm = {}
+    for bits in (8, 4):
+        q, sc = quantize(w, QuantSpec(bits), axis=0)
+        wq = q if bits == 8 else ops.pack_int4(q)
+        out = ops.quant_matmul_op(x, wq, sc.reshape(-1), bits=bits)
+        want = ref.quant_matmul_ref(x, wq, sc.reshape(-1), bits)
+        torch.cuda.synchronize(dev)
+        ratio = _tol_ratio(torch, out, want, QMM_TOL)
+        check(ratio <= 1.0 and bool(torch.isfinite(out).all()),
+              f"lm channel-mix int{bits}: quant_matmul_op != plain ({ratio:.3f} x tol)")
+        cm[f"int{bits}"] = {"tol_ratio": ratio, "rel_err_vs_bf16_weight": float(
+            (out - dense).abs().max() / dense.abs().max())}
+    # Per-channel rounding noise: max error over max |product| stays near
+    # (amax / (2^(bits-1) - 1)) / sqrt(12) per unit of the weights' spread.
+    check(cm["int8"]["rel_err_vs_bf16_weight"] < 0.03
+          and cm["int4"]["rel_err_vs_bf16_weight"] < 0.25,
+          f"lm channel-mix: quantized product outside quantization noise {cm}")
+    emit({"phase": "lm_channel_mix_quant", "M": x.shape[0], "K": w.shape[0],
+          "N": w.shape[1], **cm})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+# 8. the full-width model: kernel route against plain route
+# ---------------------------------------------------------------------------
+def _lockstep_prefill(torch, cfg, params, tokens) -> dict:
+    """A prefill layer by layer: each layer's r, k, v, lw go through B7 and
+    the plain wkv, are held to B7's tolerance, and the walk goes on with
+    the plain one (so its logits are the plain route's)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv_chunk import wkv_sequence
+    from repro_torch.models import model as M
+    from repro_torch.models import rwkv6 as R
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import rmsnorm
+
+    f32 = torch.float32
+    h = M._embed(params, tokens)
+    b, s, d = h.shape
+    x0 = h.new_zeros((b, d))
+    s0 = torch.zeros((b, d // LM_HEAD_SIZE, LM_HEAD_SIZE, LM_HEAD_SIZE), dtype=f32,
+                     device=h.device)
+    tot = {"layers": 0, "max_abs_dy": 0.0, "max_abs_ds": 0.0, "tol_ratio": 0.0}
+    for i in range(cfg.n_layers):
+        lp = T.layer(params["blocks"], i)
+        tm_in = rmsnorm(h, lp["ln1"].to(f32), cfg.rmsnorm_eps)
+        r, k, v, lw, g = R._time_mix_inputs(lp["rwkv"], tm_in, x0)
+        u = lp["rwkv"].bonus_u.to(f32).reshape(d // LM_HEAD_SIZE, LM_HEAD_SIZE)
+        r, k, v, lw = R._pad_to_chunk(r.to(f32), k.to(f32), v.to(f32), lw, LM_CHUNK)
+        yk, sk = wkv_sequence(r, k, v, lw, u, s0, chunk=LM_CHUNK)
+        yp, sp = ref.wkv_sequence_ref(r, k, v, lw, u, s0, LM_CHUNK)
+        tot["layers"] += 1
+        tot["max_abs_dy"] = max(tot["max_abs_dy"], float((yk - yp).abs().max()))
+        tot["max_abs_ds"] = max(tot["max_abs_ds"], float((sk - sp).abs().max()))
+        tot["tol_ratio"] = max(tot["tol_ratio"], _tol_ratio(torch, yk, yp, WKV_TOL),
+                               _tol_ratio(torch, sk, sp, WKV_TOL))
+        h = h + R._time_mix_output(lp["rwkv"], yp[:, :s], g, tm_in.dtype)
+        cm_in = rmsnorm(h, lp["ln2"].to(f32), cfg.rmsnorm_eps)
+        h = h + R.rwkv6_channel_mix(lp["rwkv"], cm_in, x0)[0]
+    h = rmsnorm(h, params["final_norm"].to(f32), cfg.rmsnorm_eps)
+    tot["logits"] = M._head_logits(params, cfg, h)
+    return tot
+
+
+def check_lm(torch, dev, lm) -> None:
+    import numpy as np
+
+    from repro_torch.models import model as M
+
+    cfg, params, served = lm["cfg"], lm["params"], lm["server"]
+    t0 = time.perf_counter()
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 512))).to(dev)
+    with torch.no_grad():
+        lock = _lockstep_prefill(torch, cfg, params, tokens)
+        plain, _, _ = M.forward(params, cfg, tokens=tokens, use_kernel=False)
+        kern, _, _ = M.forward(params, cfg, tokens=tokens, use_kernel=True)
+    torch.cuda.synchronize(dev)
+    walk_is_plain = bool(torch.equal(lock.pop("logits"), plain))
+    check(walk_is_plain, "lm lockstep: the layer walk differs from the plain forward")
+    check(lock["tol_ratio"] <= 1.0, f"lm lockstep: B7 outside its tolerance {lock}")
+    check(bool(torch.isfinite(kern).all()) and tuple(kern.shape) == (1, 512, cfg.padded_vocab),
+          "lm: kernel-route logits not finite or of the wrong shape")
+    # As served (bfloat16), the two routes' logits drift apart: B7's fp32
+    # differences flip bfloat16 roundings, and 32 layers of random weights
+    # amplify them.  In float32 compute they must stay close.
+    dlogit = float((kern - plain).abs().max())
+    top = float(plain.abs().max())
+    del plain, kern
+    M.COMPUTE_DTYPE = torch.float32
+    try:
+        with torch.no_grad():
+            plain32, _, _ = M.forward(lm["masters"], cfg, tokens=tokens, use_kernel=False)
+            kern32, _, _ = M.forward(lm["masters"], cfg, tokens=tokens, use_kernel=True)
+    finally:
+        M.COMPUTE_DTYPE = torch.bfloat16
+    dlogit32 = float((kern32 - plain32).abs().max())
+    top32 = float(plain32.abs().max())
+    del plain32, kern32
+    check(dlogit32 <= FP32_LOGIT_REL * top32, f"lm float32: kernel-route logits differ "
+          f"from the plain route's by {dlogit32} (largest logit {top32})")
+    # The served tokens against a plain-route Server's: a token may differ
+    # only where the plain route's top-2 gap is within twice the routes'
+    # largest logit difference (each of the two logits may move by it).
+    ref_server, ref_seconds = _serve_lm(torch, dev, cfg, params, use_kernel=False)
+    got = {r.rid: r.generated for r in served.done}
+    want = {r.rid: r.generated for r in ref_server.done}
+    prompts = {r.rid: r.prompt for r in _lm_requests(cfg)}
+    prefill = M.make_prefill_step(cfg, use_kernel=False)
+    tol = 2 * dlogit
+    differ = []
+    for rid, toks in want.items():
+        diff = [i for i, (a, b) in enumerate(zip(got[rid], toks)) if a != b]
+        if diff:
+            i = diff[0]
+            seq = np.concatenate([prompts[rid], np.asarray(toks[:i], np.int64)])
+            with torch.no_grad():
+                logits, _ = prefill(params, {"tokens": torch.from_numpy(seq[None]).to(dev)})
+            top2 = torch.topk(logits[0], 2).values
+            gap = float(top2[0] - top2[1])
+            differ.append({"rid": rid, "token": i, "plain_top2_gap": gap, "tol": tol})
+            check(gap <= tol, f"lm: request {rid} token {i} differs between the "
+                  f"kernel and plain routes with a top-2 gap of {gap} > {tol}")
+    emit({"phase": "lm_check", "prefill_tokens": 512, "lockstep": lock,
+          "tolerance": WKV_TOL, "walk_equals_plain_forward": walk_is_plain,
+          "bf16_logits_max_abs_diff_kernel_vs_plain": dlogit, "bf16_largest_logit": top,
+          "fp32_logits_max_abs_diff_kernel_vs_plain": dlogit32,
+          "fp32_largest_logit": top32, "fp32_logits_tolerance_rel": FP32_LOGIT_REL,
+          "served_requests_equal": sum(got[r] == want[r] for r in want),
+          "served_requests_differing": differ, "token_gap_tolerance": tol,
+          "plain_route_serve_seconds": ref_seconds,
+          "seconds": round(time.perf_counter() - t0, 3)})
 
 if __name__ == "__main__":
     try:

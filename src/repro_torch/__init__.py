@@ -1,4 +1,5 @@
-"""SpiDR in PyTorch + CUDA: the deployed integer SNN on an NVIDIA H100.
+"""SpiDR in PyTorch + CUDA on an NVIDIA H100: the deployed integer SNN and
+the RWKV6 LM serving path.
 
 The PyTorch counterpart of ``repro`` (the JAX + Pallas reference, which
 stays in the repository as the oracle this package is tested against).
@@ -11,6 +12,9 @@ The layout mirrors ``repro`` so each module's counterpart is easy to find:
     engine/    the fused timestep loop (``run_chunk`` / ``run_engine``)
     spidr/     the ``DeployTarget`` -> ``CompiledSNN`` facade
     serving/   ``BatchWorker``; ``launch/serve.py`` is its CLI
+    models/    the LM stack's ``ssm`` family (RWKV6): prefill on the wkv
+               kernel, decode by the recurrence; ``launch/serve.py --arch``
+               serves it through ``Server``
 
     from repro_torch import spidr
     from repro_torch.configs import spidr_gesture

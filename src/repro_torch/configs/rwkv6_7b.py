@@ -1,0 +1,10 @@
+"""RWKV6 (Finch) 7B: attention-free, data-dependent decay. [arXiv:2404.05892]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="rwkv6-7b", family="ssm",
+    n_layers=32, d_model=4096, n_heads=64, n_kv_heads=64,  # 64 wkv heads of 64
+    d_ff=14336, vocab_size=65536, head_dim=64,
+    sub_quadratic=True,
+    source="arXiv:2404.05892",
+)

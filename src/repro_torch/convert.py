@@ -1,11 +1,17 @@
-"""Carry the JAX package's float parameters into this package.
+"""Carry the JAX package's parameters into this package.
 
 ``repro.core.network.init_params`` returns a list with one float32
 ``(fan_in, c_out)`` array per weight layer and ``None`` per pool layer.
 Converted to numpy, that list becomes the same list of torch tensors here;
 ``engine.build_engine`` then quantizes them itself and reproduces the JAX
-engine's ``w_q`` and ``thr_int`` bit for bit.  Nothing of JAX is imported:
-the caller hands over numpy arrays.
+engine's ``w_q`` and ``thr_int`` bit for bit.
+
+``repro.models.model.init_params`` returns the LM's parameter pytree:
+nested dicts whose RWKV6 leaves sit in a ``RWKV6Params`` NamedTuple, each
+leaf layer-stacked.  :func:`lm_params_from_jax` turns the same tree, with
+numpy leaves, into the port's (same keys, same field names, same layouts).
+
+Nothing of JAX is imported: the caller hands over numpy arrays.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["params_from_jax"]
+__all__ = ["lm_params_from_jax", "params_from_jax"]
 
 
 def params_from_jax(np_params, device=None) -> list:
@@ -23,3 +29,25 @@ def params_from_jax(np_params, device=None) -> list:
     return [None if p is None
             else torch.tensor(np.array(p, np.float32), device=dev)
             for p in np_params]
+
+
+def lm_params_from_jax(np_tree, device=None):
+    """The LM parameter tree with numpy leaves -> the same tree of tensors
+    on ``device``; a NamedTuple with ``RWKV6Params``' fields becomes the
+    port's ``RWKV6Params``.  Leaves keep their dtype."""
+    from .models.rwkv6 import RWKV6Params
+
+    dev = resolve_device(device)
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if hasattr(x, "_fields"):
+            if tuple(x._fields) != RWKV6Params._fields:
+                raise TypeError(f"unknown parameter group {type(x).__name__}")
+            return RWKV6Params(*(conv(v) for v in x))
+        return torch.tensor(np.array(x), device=dev)
+
+    return conv(np_tree)

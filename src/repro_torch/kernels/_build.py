@@ -32,7 +32,7 @@ import subprocess
 import torch
 
 __all__ = ["BuildError", "LAUNCHES", "bind", "build_all", "check", "count_launch",
-           "kernel_device", "load", "raise_on", "reset_launches"]
+           "kernel_device", "load", "raise_on", "reset_launches", "sm_count"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -41,11 +41,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOADED: dict = {}   # source name -> ctypes.CDLL
 _BOUND: dict = {}    # source name -> {symbol: ctypes function}
+_SM_COUNT: dict = {}  # CUDA device -> its number of SMs
 
 #: Kernel launches per CUDA entry point since the last :func:`reset_launches`.
 LAUNCHES = {name: 0 for name in (
     "fused_lif_gemm_int", "fused_lif_gemm_int_tblk", "fused_lif_gemm",
-    "spike_gemm", "lif_step_fused", "lif_step_fused_int")}
+    "spike_gemm", "lif_step_fused", "lif_step_fused_int",
+    "quant_matmul_int8", "quant_matmul_int4", "wkv_sequence")}
 
 
 def reset_launches() -> None:
@@ -168,6 +170,13 @@ def check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def sm_count(dev: torch.device) -> int:
+    """The device's number of SMs (the wrappers size their grids by it)."""
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SM_COUNT[dev]
 
 
 def raise_on(err: int, what: str) -> None:

@@ -29,8 +29,13 @@ __all__ = [
     "fused_lif_gemm_ref",
     "lif_step_int_ref",
     "lif_step_ref",
+    "pack_int4",
+    "quant_matmul_ref",
     "spike_gemm_ref",
     "spike_tile_bitmap",
+    "unpack_int4",
+    "wkv_chunk_ref",
+    "wkv_sequence_ref",
 ]
 
 DEFAULT_BLOCK = (128, 128, 128)  # (bm, bn, bk), the reference's default
@@ -159,3 +164,79 @@ def compare_float_step(v_got, s_got, v_want, s_want, v_pre, threshold,
             "spikes_flipped": int(flip.sum()),
             "flipped_off_threshold": int((flip & ~near).sum()),
             "near_threshold": int(near.sum())}
+
+
+# ---------------------------------------------------------------------------
+# The LM stack's kernels: quant_matmul (B6) and the RWKV6 wkv (B7)
+# ---------------------------------------------------------------------------
+def pack_int4(w_int: torch.Tensor) -> torch.Tensor:
+    """(K, N) ints in [-8, 7] -> (K//2, N) uint8, even K rows in the low nibble."""
+    if w_int.shape[0] % 2:
+        raise ValueError(f"K must be even to pack int4, got {w_int.shape[0]}")
+    w = w_int.to(torch.int32)
+    return ((w[0::2] & 0xF) | ((w[1::2] & 0xF) << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4` -> (K, N) int8, sign-extended."""
+    p = packed.to(torch.int32)
+    lo, hi = p & 0xF, (p >> 4) & 0xF
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    k2, n = packed.shape
+    return torch.stack([lo, hi], dim=1).reshape(k2 * 2, n).to(torch.int8)
+
+
+def quant_matmul_ref(x, w_q, scale, bits=8):
+    """float32 ``(x @ dequant(w_q)) * scale``: ``x`` (M, K), ``w_q`` (K, N)
+    int8 or (K/2, N) packed uint8 (``bits=4``), ``scale`` (N,).  On the card
+    the float32 product must not run in TF32 (``allow_tf32`` False)."""
+    w = unpack_int4(w_q) if bits == 4 else w_q
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)) * scale.to(torch.float32)
+
+
+def wkv_sequence_ref(r, k, v, lw, u, s0, chunk: int = 32):
+    """RWKV6 wkv over a sequence, chunked: r/k/v/lw (B, S, H, N) float32
+    with S a multiple of ``chunk``, u (H, N) (or anything broadcastable to
+    (B, H, N)), s0 (B, H, N, N) -> (y (B, S, H, N), s_final (B, H, N, N)).
+    Every exponent is <= 0: the pairwise decay is exp(lw_excl_i - lw_incl_j)
+    for j < i, never a product of two exponentials.  The model's plain path
+    (``models.rwkv6._wkv_chunked``) is this function."""
+    b, s, h, n = r.shape
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
+    nc = s // chunk
+
+    def by_chunk(x):  # (B,S,H,N) -> (nc, B, H, C, N)
+        return x.reshape(b, nc, chunk, h, n).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, lwc = map(by_chunk, (r, k, v, lw))
+    u4 = torch.broadcast_to(u, (b, h, n))[:, :, None, :]     # (B,H,1,N)
+    strict = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=r.device), diagonal=-1)[:, :, None]
+    state, ys = s0, []
+    for rb, kb, vb, lwb in zip(rc, kc, vc, lwc):              # (B,H,C,N)
+        lw_incl = torch.cumsum(lwb, dim=2)
+        lw_excl = lw_incl - lwb
+        y = torch.matmul(rb * torch.exp(lw_excl), state)     # inter-chunk
+        expo = lw_excl[:, :, :, None, :] - lw_incl[:, :, None, :, :]
+        ratio = torch.exp(torch.where(strict, expo, float("-inf")))  # (B,H,C,C,N)
+        a = (rb[:, :, :, None, :] * kb[:, :, None, :, :] * ratio).sum(-1)
+        y = y + torch.matmul(a, vb)                          # intra-chunk
+        y = y + (rb * u4 * kb).sum(-1, keepdim=True) * vb    # diagonal bonus
+        last = lw_incl[:, :, -1:, :]                         # (B,H,1,N)
+        k_scaled = kb * torch.exp(last - lw_incl)
+        state = state * torch.exp(last).transpose(2, 3) + torch.matmul(
+            k_scaled.transpose(2, 3), vb)
+        ys.append(y)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, s, h, n)
+    return y, state
+
+
+def wkv_chunk_ref(r, k, v, lw, u, s0):
+    """One chunk for every (batch, head) row, the TPU kernel's signature:
+    r/k/v/lw (BH, C, N), u (BH, 1, N), s0 (BH, N, N) -> (y, s1)."""
+    bh, c, n = r.shape
+    y, s1 = wkv_sequence_ref(*(t.reshape(bh, c, 1, n) for t in (r, k, v, lw)),
+                             u.reshape(bh, 1, n), s0.reshape(bh, 1, n, n), c)
+    return y.reshape(bh, c, n), s1.reshape(bh, n, n)

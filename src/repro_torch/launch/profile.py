@@ -1,19 +1,26 @@
-"""Where the time goes: one full-width network run on the card, profiled.
+"""Where the time goes: one full-width run on the card, profiled.
 
     python -m repro_torch.launch.profile --snn optical-flow --batch 2 --t-block 1
     python -m repro_torch.launch.profile --snn gesture --batch 4 --t-block 4
+    python -m repro_torch.launch.profile --arch rwkv6-7b --prompt-len 512 --batch 4
 
-Compiles the paper network at full Table II width (4-bit, fused CUDA
-kernels, random weights from a fixed seed), warms up, then
+``--snn``: compiles the paper network at full Table II width (4-bit, fused
+CUDA kernels, random weights from a fixed seed) and profiles one
+``CompiledSNN.run``.  ``--arch``: builds the LM at full published width
+(random weights from a fixed seed, bfloat16 serving copies) and profiles
+one prefill of ``--prompt-len`` tokens (one request, as the server admits
+them) and one decode step over ``--batch`` slots.  Each workload is warmed
+up, then
 
-  * times ``--repeats`` runs on the host clock, each ending in
+  * timed ``--repeats`` times on the host clock, each run ending in
     ``torch.cuda.synchronize()`` (no profiler attached);
-  * runs once more under ``torch.profiler`` and sums the device time of
+  * run once more under ``torch.profiler``, summing the device time of
     every CUDA kernel by name.
 
-Prints one JSON object: host ms per run, device ms per run, the device's
-busy share (device ms / host ms) and the kernels that took the device
-time, largest first.  Needs a CUDA device.
+Prints one JSON object per workload: host ms per run, device ms per run,
+the device's busy share (device ms / host ms) and the kernels that took
+the device time, largest first; for the LM also the share of the wkv
+kernel and of the matrix products.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -28,32 +35,32 @@ from ..configs import spidr_gesture, spidr_optflow
 from ..core.network import init_params
 from ..snn.data import make_flow_batch, make_gesture_batch
 
+# Substrings of the device kernels that are matrix products (cuBLAS,
+# cuBLASLt, CUTLASS) in a profile.
+_GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "gemv")
 
-def profile_run(snn: str, batch: int, t_block: int, repeats: int,
-                device=None) -> dict:
+
+def _card(device):
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("profiling measures the card: pass a CUDA device")
-    spec = (spidr_gesture if snn == "gesture" else spidr_optflow).CONFIG
-    params = init_params(torch.Generator().manual_seed(0), spec)
-    compiled = spidr.compile(spec, params, spidr.DeployTarget(
-        weight_bits=4, backend="fused", t_block=t_block), device=dev)
-    make = make_gesture_batch if snn == "gesture" else make_flow_batch
-    events, _ = make(torch.Generator().manual_seed(1), batch=batch,
-                     timesteps=spec.timesteps, hw=spec.input_hw, device=dev)
+    return dev
 
-    compiled.run(events)  # warm-up: kernel build and load, allocator
+
+def _measure(fn, dev, repeats: int) -> dict:
+    """Host-clock repeats of ``fn`` (synchronized), then one profiled run
+    summed by kernel name."""
+    fn()  # warm-up: kernel build and load, allocator
     torch.cuda.synchronize(dev)
     host_ms = []
     for _ in range(repeats):
         t0 = time.perf_counter()
-        compiled.run(events)
+        fn()
         torch.cuda.synchronize(dev)
         host_ms.append((time.perf_counter() - t0) * 1e3)
-
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        compiled.run(events)
+        fn()
         torch.cuda.synchronize(dev)
     by_kernel: dict = {}
     for e in prof.events():
@@ -64,26 +71,88 @@ def profile_run(snn: str, batch: int, t_block: int, repeats: int,
     host_med = sorted(host_ms)[len(host_ms) // 2]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
     return {
-        "snn": snn, "hw": list(spec.input_hw), "T": spec.timesteps,
-        "batch": batch, "t_block": t_block, "card": torch.cuda.get_device_name(dev),
+        "card": torch.cuda.get_device_name(dev),
         "host_ms": host_ms, "host_ms_median": host_med,
         "device_ms": device_ms if by_kernel else None,
         "device_busy_share": device_ms / host_med if by_kernel else None,
+        "by_kernel": by_kernel,
         "kernels": [{"name": name[:120], "launches": n, "ms": us / 1e3}
                     for name, (n, us) in top],
     }
 
 
+def profile_lm(arch: str, prompt_len: int, batch: int, repeats: int,
+               device=None) -> list:
+    """One prefill (B=1, ``prompt_len`` tokens) and one decode step over
+    ``batch`` slots of the full-width LM."""
+    from ..configs.base import get_config
+    from ..models import model as M
+    from ..models.transformer import init_decode_state
+
+    dev = _card(device)
+    cfg = get_config(arch)
+    params = M.serving_params(M.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg))
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=g, device=dev)
+    prefill, decode = M.make_prefill_step(cfg), M.make_decode_step(cfg)
+    cache = init_decode_state(cfg, batch, prompt_len + 1, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, 1), generator=g, device=dev)
+    out = []
+    for name, fn in (("prefill", lambda: prefill(params, {"tokens": prompt})),
+                     ("decode", lambda: decode(params, cache, {"tokens": tokens}))):
+        with torch.no_grad():
+            res = _measure(fn, dev, repeats)
+        by_kernel = res.pop("by_kernel")
+        total = sum(us for _, us in by_kernel.values()) or 1.0
+
+        def share(pred):
+            return sum(us for k, (_, us) in by_kernel.items() if pred(k.lower())) / total
+
+        out.append({"arch": arch, "workload": name, "layers": cfg.n_layers,
+                    "d_model": cfg.d_model,
+                    "tokens": prompt_len if name == "prefill" else batch,
+                    "batch": 1 if name == "prefill" else batch, **res,
+                    "wkv_share": share(lambda k: "wkv" in k),
+                    "gemm_share": share(lambda k: any(s in k for s in _GEMM_NAMES))})
+    return out
+
+
+def profile_run(snn: str, batch: int, t_block: int, repeats: int,
+                device=None) -> dict:
+    dev = _card(device)
+    spec = (spidr_gesture if snn == "gesture" else spidr_optflow).CONFIG
+    params = init_params(torch.Generator().manual_seed(0), spec)
+    compiled = spidr.compile(spec, params, spidr.DeployTarget(
+        weight_bits=4, backend="fused", t_block=t_block), device=dev)
+    make = make_gesture_batch if snn == "gesture" else make_flow_batch
+    events, _ = make(torch.Generator().manual_seed(1), batch=batch,
+                     timesteps=spec.timesteps, hw=spec.input_hw, device=dev)
+
+    res = _measure(lambda: compiled.run(events), dev, repeats)
+    res.pop("by_kernel")
+    return {"snn": snn, "hw": list(spec.input_hw), "T": spec.timesteps,
+            "batch": batch, "t_block": t_block, **res}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.profile",
                                  description=__doc__.split("\n\n")[0])
-    ap.add_argument("--snn", choices=["gesture", "optical-flow"], required=True)
-    ap.add_argument("--batch", type=int, default=2)
+    what = ap.add_mutually_exclusive_group(required=True)
+    what.add_argument("--snn", choices=["gesture", "optical-flow"])
+    what.add_argument("--arch", help="an LM (ported: rwkv6-7b), at full width")
+    ap.add_argument("--batch", type=int, default=2,
+                    help="streams per run (--snn) or decode slots (--arch)")
     ap.add_argument("--t-block", type=int, default=1, dest="t_block")
+    ap.add_argument("--prompt-len", type=int, default=512, dest="prompt_len")
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
-    print(json.dumps(profile_run(args.snn, args.batch, args.t_block,
-                                 args.repeats)), flush=True)
+    if args.arch is not None:
+        for row in profile_lm(args.arch, args.prompt_len, args.batch, args.repeats):
+            print(json.dumps(row), flush=True)
+    else:
+        print(json.dumps(profile_run(args.snn, args.batch, args.t_block,
+                                     args.repeats)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,14 +1,23 @@
-"""Serve DVS event streams through the SNN engine on the card.
+"""Serving on the card: LM continuous batching and DVS event streams.
 
+    python -m repro_torch.launch.serve --arch rwkv6-7b --requests 8 --capacity 4 --prompt-len 64
+    python -m repro_torch.launch.serve --arch rwkv6-7b --reduced --device cpu
     python -m repro_torch.launch.serve --snn gesture --requests 8 --capacity 4
     python -m repro_torch.launch.serve --snn optical-flow --requests 2 --capacity 2 --t-block 5
     python -m repro_torch.launch.serve --snn gesture --torch --device cpu
 
-The network is the paper's Table II configuration at full width with
-random weights from a fixed seed.  One ``DeployTarget`` declares the
-precision, backend and ``t_block``; the ``CompiledSNN`` serves whole
-streams through a
-:class:`~repro_torch.serving.BatchWorker`: requests are packed into
+LM (``--arch``): the model with random weights from a fixed seed, at its
+full published width unless ``--reduced`` asks for the CPU-sized config
+(the reference's ``--reduced`` is always on; here it is opt-in).  A
+:class:`Server` does continuous batching with slot reuse: one prefill per
+admitted request (the wkv kernel B7 in every layer on the card), then one
+batched decode step per tick over every slot, idle slots riding along.
+Only ``rwkv6-7b`` (the ``ssm`` family) is ported.
+
+SNN (``--snn``): the paper's Table II network at full width with random
+weights from a fixed seed.  One ``DeployTarget`` declares the precision,
+backend and ``t_block``; the ``CompiledSNN`` serves whole streams through
+a :class:`~repro_torch.serving.BatchWorker`: requests are packed into
 fixed-capacity batches and each batch is one engine run.
 
 Flags of the JAX CLI whose code is not ported yet exit with an error that
@@ -17,16 +26,21 @@ names the ROADMAP item that ports them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device, spidr
 from ..configs import spidr_gesture, spidr_optflow
+from ..configs.base import get_config
 from ..core.network import init_params
+from ..models import model as M
+from ..models.transformer import init_decode_state
 from ..serving import BatchWorker, StreamRequest
 from ..snn.data import make_flow_batch, make_gesture_batch
 
@@ -45,11 +59,108 @@ _NOT_PORTED = {
     "--trace-out": "A9 (serving fleet and obs)",
     "--log-json": "A9 (serving fleet and obs)",
     "--n-cores": "A5 (multi-core compile)",
-    "--arch": "A12 (LM stack)",
-    "--prompt-len": "A12 (LM stack)",
-    "--max-new": "A12 (LM stack)",
     "--jnp": "nothing: the port's plain backend is --torch",
 }
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    generated: list = dataclasses.field(default_factory=list)
+    submitted_at: float = 0.0
+    first_token_at: Optional[float] = None
+    done_at: Optional[float] = None
+
+
+class Server:
+    """Fixed-capacity continuous-batching LM server (the reference's).
+
+    Runs on the device of ``params`` (pass :func:`models.model.serving_params`
+    to skip the per-call weight casts).  ``use_kernel`` picks the prefill's
+    wkv route: None is the CUDA kernel on the card.  ``prefill_seconds`` and
+    ``decode_seconds`` add up the host-clock time of the prefills and of
+    the decode steps; each ends in the argmax's copy to the host, which
+    waits for the device.
+    """
+
+    def __init__(self, cfg, params, capacity: int = 8, ctx_len: int = 256,
+                 use_kernel: Optional[bool] = None):
+        self.cfg, self.params = cfg, params
+        self.capacity, self.ctx_len = capacity, ctx_len
+        self.device = params["embed"].device
+        self.decode_step = M.make_decode_step(cfg)
+        self.prefill = M.make_prefill_step(cfg, use_kernel=use_kernel)
+        # Batched cache: slot i belongs to active request i (or is empty).
+        self.cache = init_decode_state(cfg, capacity, ctx_len, device=self.device)
+        self.slots: list = [None] * capacity
+        self.slot_len = np.zeros(capacity, np.int32)
+        self.next_tok = np.zeros((capacity, 1), np.int64)
+        self.waiting: list = []
+        self.done: list = []
+        self.prefills = 0
+        self.decode_steps = 0
+        self.prefill_seconds = 0.0
+        self.decode_seconds = 0.0
+
+    def submit(self, req: Request) -> None:
+        req.submitted_at = time.monotonic()
+        self.waiting.append(req)
+
+    @torch.no_grad()
+    def _admit(self) -> None:
+        for i in range(self.capacity):
+            if self.slots[i] is None and self.waiting:
+                req = self.waiting.pop(0)
+                t0 = time.perf_counter()
+                tokens = torch.as_tensor(req.prompt[None, :], dtype=torch.long,
+                                         device=self.device)
+                logits, cache1 = self.prefill(self.params, {"tokens": tokens})
+                tok = int(torch.argmax(logits[0]))
+                self.prefills += 1
+                self.prefill_seconds += time.perf_counter() - t0
+                req.generated.append(tok)
+                req.first_token_at = time.monotonic()
+                self._copy_into_slot(i, cache1)
+                self.slots[i] = req
+                self.slot_len[i] = len(req.prompt)
+                self.next_tok[i, 0] = tok
+
+    def _copy_into_slot(self, i: int, cache1: dict) -> None:
+        """The prefill's layer-stacked state (L, 1, ...) into slot i."""
+        for key in ("x_tm", "x_cm", "s"):
+            dst = self.cache[key]
+            dst[:, i:i + 1] = cache1[key].to(dst.dtype)
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        self._admit()
+        active = [i for i in range(self.capacity) if self.slots[i] is not None]
+        if not active:
+            return False
+        # One batched decode step for every slot (idle slots ride along).
+        t0 = time.perf_counter()
+        self.cache["len"] = torch.tensor(int(self.slot_len.max()), dtype=torch.int32,
+                                         device=self.device)
+        tokens = torch.as_tensor(self.next_tok, device=self.device)
+        logits, self.cache = self.decode_step(self.params, self.cache,
+                                              {"tokens": tokens})
+        toks = torch.argmax(logits, dim=-1).cpu().numpy()
+        self.decode_steps += 1
+        self.decode_seconds += time.perf_counter() - t0
+        for i in active:
+            req = self.slots[i]
+            tok = int(toks[i])
+            req.generated.append(tok)
+            self.slot_len[i] += 1
+            self.next_tok[i, 0] = tok
+            if len(req.generated) >= req.max_new or self.slot_len[i] >= self.ctx_len - 1:
+                req.done_at = time.monotonic()
+                self.done.append(req)
+                self.slots[i] = None  # free slot: continuous batching
+                self.slot_len[i] = 0
+        return True
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -57,6 +168,14 @@ def _parser() -> argparse.ArgumentParser:
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--snn", choices=["gesture", "optical-flow"],
                     help="which paper network serves the event streams")
+    ap.add_argument("--arch", default=None,
+                    help="serve an LM instead (ported: rwkv6-7b)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="LM: the CPU-sized config of the same family instead "
+                         "of the full published width (the reference's "
+                         "--reduced is always on; here it is opt-in)")
+    ap.add_argument("--prompt-len", type=int, default=16, dest="prompt_len")
+    ap.add_argument("--max-new", type=int, default=8, dest="max_new")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--capacity", type=int, default=4)
     ap.add_argument("--weight-bits", type=int, default=4, choices=[4, 6, 8],
@@ -81,10 +200,50 @@ def parse_args(argv=None) -> argparse.Namespace:
                      f"{_NOT_PORTED[flag]}")
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if args.snn is None:
-        ap.error("--snn is required: LM serving (--arch) is not ported yet — "
-                 "see ROADMAP.md A12 (LM stack)")
+    if (args.snn is None) == (args.arch is None):
+        ap.error("give one of --snn (event streams) or --arch (LM serving; "
+                 "ROADMAP.md A12 ports the LM stack: rwkv6-7b so far)")
+    if args.arch is not None:
+        try:
+            get_config(args.arch)
+        except (KeyError, NotImplementedError) as e:
+            ap.error(str(e).strip("'\""))
     return args
+
+
+def serve_lm(args: argparse.Namespace) -> Server:
+    """Random-weight LM (seed 0), ``args.requests`` random prompts (seed 0)."""
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = M.serving_params(M.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg))
+    # A slot's context: the reference's 64, or enough for the prompt and
+    # every new token (the reference's fixed 64 cuts longer requests short).
+    ctx_len = max(64, args.prompt_len + args.max_new + 1)
+    server = Server(cfg, params, capacity=args.capacity, ctx_len=ctx_len)
+    rng = np.random.default_rng(0)
+    for r in range(args.requests):
+        server.submit(Request(rid=r, max_new=args.max_new, prompt=rng.integers(
+            0, cfg.vocab_size, args.prompt_len).astype(np.int32)))
+    t0 = time.monotonic()
+    while server.step():
+        pass
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.monotonic() - t0
+    lat = [r.done_at - r.submitted_at for r in server.done]
+    ttft = [r.first_token_at - r.submitted_at for r in server.done]
+    toks = sum(len(r.generated) for r in server.done)
+    log.info("served %d requests (%s, %d layers, d_model %d), %d tokens in "
+             "%.3fs (%.1f tok/s); TTFT p50 %.3fs; latency p50 %.3fs; "
+             "prefills %d (%.3fs), decode steps %d (%.3fs); device=%s",
+             len(server.done), cfg.name, cfg.n_layers, cfg.d_model, toks, dt,
+             toks / dt, float(np.median(ttft)), float(np.median(lat)),
+             server.prefills, server.prefill_seconds, server.decode_steps,
+             server.decode_seconds, dev)
+    return server
 
 
 def serve_snn(args: argparse.Namespace) -> BatchWorker:
@@ -122,7 +281,11 @@ def serve_snn(args: argparse.Namespace) -> BatchWorker:
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
-    serve_snn(parse_args(argv))
+    args = parse_args(argv)
+    if args.arch is not None:
+        serve_lm(args)
+    else:
+        serve_snn(args)
 
 
 if __name__ == "__main__":

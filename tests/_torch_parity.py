@@ -27,11 +27,17 @@ def jax_ref():
         import jax.numpy as jnp
 
         from repro import spidr, serving
+        from repro.configs import base as lm_configs
         from repro.configs import spidr_gesture, spidr_optflow
         from repro.core import (cim_macro, energy, layers, modes, network, neuron,
                                 pipeline, quant)
         from repro.engine import cost, inference
-        from repro.kernels import fused_lif_gemm, lif_step, ref, spike_gemm
+        from repro.kernels import (fused_lif_gemm, lif_step, quant_matmul, ref,
+                                   spike_gemm, wkv_chunk)
+        from repro.launch import serve as lm_serve
+        from repro.models import common as lm_common
+        from repro.models import model as lm_model
+        from repro.models import rwkv6, transformer
         from repro.snn import data
     return types.SimpleNamespace(
         jax=jax, jnp=jnp, spidr=spidr, serving=serving, quant=quant,
@@ -39,7 +45,10 @@ def jax_ref():
         kernels=fused_lif_gemm, ref=ref, data=data,
         spike_gemm=spike_gemm, lif_step=lif_step, modes=modes, energy=energy,
         pipeline=pipeline, cost=cost, cim_macro=cim_macro,
-        spidr_gesture=spidr_gesture, spidr_optflow=spidr_optflow)
+        spidr_gesture=spidr_gesture, spidr_optflow=spidr_optflow,
+        lm_configs=lm_configs, lm_common=lm_common, rwkv6=rwkv6,
+        transformer=transformer, lm_model=lm_model, wkv_chunk=wkv_chunk,
+        quant_matmul=quant_matmul, lm_serve=lm_serve)
 
 
 @pytest.fixture

@@ -180,7 +180,8 @@ def test_launch_counter_is_shared():
     assert fk.LAUNCHES is LAUNCHES
     assert set(LAUNCHES) == {"fused_lif_gemm_int", "fused_lif_gemm_int_tblk",
                              "fused_lif_gemm", "spike_gemm", "lif_step_fused",
-                             "lif_step_fused_int"}
+                             "lif_step_fused_int", "quant_matmul_int8",
+                             "quant_matmul_int4", "wkv_sequence"}
 
 
 # ---------------------------------------------------------------------------
