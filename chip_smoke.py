@@ -10,8 +10,9 @@ Phases, each printing JSON lines:
                 source, in parallel) and print ptxas' register/smem report
   2. kernels    each CUDA kernel against its plain PyTorch version on the
                 card at the main paths' real shapes (gesture conv layers
-                M=4*4096 K=18 and K=144 N=16; optical-flow middle layer
-                M=2*110592 K=288 N=32): the integer kernels bit-exact, the
+                M=4*4096 K=18 and K=144 N=16; optical-flow middle and last
+                layers M=2*110592 K=288 N=32 and N=2): the integer kernels
+                bit-exact, the
                 float ones within the float tolerance (Vmem atol=rtol=1e-5,
                 spikes equal except where the pre-reset Vmem lies within
                 1e-5 of the threshold, each such spot counted); scalar and
@@ -19,7 +20,9 @@ Phases, each printing JSON lines:
                 reset, T=4 and T=3 slabs, 0 % and 10 % random spikes.  Then
                 timings: CUDA events over eager launches (``ms``, host
                 overhead included) and over a CUDA-graph replay of 100
-                launches (``graph_ms``, the device time per launch)
+                launches (``graph_ms``, the device time per launch), and
+                the library yardstick the same two ways where one exists
+                (``library_ms``, ``library_graph_ms``)
   3. gesture    the Table II gesture network at full width (64x64, T=20,
                 4-bit) serving 8 requests through BatchWorker at capacity 4,
                 t_block 1 and 4, bit-exact with backend="torch" on the card
@@ -39,8 +42,11 @@ Phases, each printing JSON lines:
                 the state; quant_matmul (B6, int8 and int4) at the rwkv6-7b
                 channel-mix shape (K=4096, N=14336), M in {4, 512}, weights
                 quantized per output channel, rtol = atol = 1e-4, plus
-                ragged shapes.  Timed as in phase 2, with the library
-                yardstick for B6 (``torch.matmul`` on the dequantized weight)
+                ragged shapes at M in {1, 4, 8, 16, 17}, each through both
+                of B6's regimes where M allows (decode M <= 16, tiled).
+                Timed as in phase 2, with the library yardstick for B6
+                (``torch.matmul`` on the dequantized weight), and both
+                regimes timed on each side of the cut-over
   7. lm         rwkv6-7b at full published width (32 layers, d_model 4096,
                 random weights from a seed, bfloat16 serving copies) serving
                 8 requests of 64 tokens (8 new each) through the port's
@@ -238,8 +244,10 @@ def phase_build(card: str):
 # 2. kernels against their plain versions, then timings
 # ---------------------------------------------------------------------------
 SHAPES = {  # name: (M, K, N) as the main path gives them
+    "gesture_first": (4 * 64 * 64, 18, 16),
     "gesture_conv": (4 * 64 * 64, 144, 16),
     "flow_middle": (2 * 288 * 384, 288, 32),
+    "flow_last": (2 * 288 * 384, 288, 2),
 }
 
 
@@ -314,7 +322,16 @@ def _bound(s, m, k, n, t) -> dict:
 
 
 def phase_kernels(torch, dev, fk):
+    from repro_torch.kernels import fused_lif_gemm as fl
     from repro_torch.kernels import ref
+
+    # B1's launch plan sizes shared memory as the kernel lays it out.
+    for shape_name, (m, k, n) in SHAPES.items():
+        for stages in (2, 3, 4):
+            c_bytes = fl._fn("spidr_fused_lif_gemm_int_smem")(k, n, stages)
+            check(c_bytes == fl.tc_smem(k, n, stages), f"B1 at {shape_name}: the "
+                  f"wrapper's shared memory {fl.tc_smem(k, n, stages)} != the "
+                  f"kernel's {c_bytes}")
 
     plain = {"fused_lif_gemm_int": ref.fused_lif_gemm_int_ref,
              "fused_lif_gemm_int_tblk": ref.fused_lif_gemm_int_tblk_ref}
@@ -354,19 +371,26 @@ def phase_kernels(torch, dev, fk):
     # Timings at the main path's shapes: the network's neuron program
     # (4-bit: 7-bit Vmem), scalar threshold, skip_empty on, 10% random spikes.
     results = {name: {"max_abs_err": max_err[name], "library_ms": None,
-                      "library_note": LIBRARY_NOTE[name], "shapes": []}
+                      "library_graph_ms": None, "library_note": LIBRARY_NOTE[name],
+                      "shapes": []}
                for name in kernel}
     for shape_name, (m, k, n) in SHAPES.items():
         for name, t in (("fused_lif_gemm_int", None), ("fused_lif_gemm_int_tblk", 4)):
             s, w, v, _ = _inputs(torch, dev, m, k, n, 7, t=t, seed=1)
             kw = dict(leak_shift=3, soft_reset=False, vmem_bits=7)
-            thr = torch.full((n,), 5, dtype=torch.int32, device=dev)
+            # B1 takes an int threshold as a kernel argument; B2's wrapper
+            # fills an (N,) vector for one, so its graph gets the vector.
+            thr = 5 if name == "fused_lif_gemm_int" else torch.full(
+                (n,), 5, dtype=torch.int32, device=dev)
             k_ms = _time_ms(torch, lambda: kernel[name](s, w, v, 5, **kw), 20)
             g_ms = _graph_ms(torch, lambda: kernel[name](s, w, v, thr, **kw))
             p_ms = _time_ms(torch, lambda: plain[name](s, w, v, 5, **kw), 5)
             row = {"shape": shape_name, "T": t, "M": m, "K": k, "N": n,
                    "ms": k_ms, "graph_ms": g_ms, "plain_ms": p_ms,
                    **_bound(s, m, k, n, t)}
+            if t is None:  # B1's persistent grid and ring
+                row["grid_x"], row["stages"] = fl.tc_plan(
+                    m, k, n, torch.cuda.get_device_properties(dev).multi_processor_count)
             results[name]["shapes"].append(row)
             emit({"phase": "kernel_timing", "kernel": name, **row})
             del s, w, v
@@ -381,8 +405,9 @@ def _headline(results: dict) -> dict:
         r.update(ms=main["ms"], graph_ms=main["graph_ms"],
                  plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                  bound_by=main["bound_by"])
-        if "library_ms" in main:
-            r["library_ms"] = main["library_ms"]
+        for key in ("library_ms", "library_graph_ms"):
+            if key in main:
+                r[key] = main[key]
     return results
 
 
@@ -412,7 +437,6 @@ def _small_engine_check(torch, dev) -> bool:
 # ---------------------------------------------------------------------------
 # 2b. the unfused kernels (B4, B5) and the float fused kernel (B3)
 # ---------------------------------------------------------------------------
-CHECK_SHAPES = {"gesture_conv1": (4 * 64 * 64, 18, 16), **SHAPES}
 SKIPS = ((True, "reduce"), (True, "bitmap"), (False, "reduce"))
 
 
@@ -447,7 +471,7 @@ def phase_unfused_kernels(torch, dev):
         flips[name] += res["spikes_flipped"]
         cases[name] += 1
 
-    for shape_name, (m, k, n) in CHECK_SHAPES.items():
+    for shape_name, (m, k, n) in SHAPES.items():
         for density in (0.1, 0.0):
             s8, w8, _, _ = _inputs(torch, dev, m, k, n, 7, density=density)
             want = ref.spike_gemm_ref(s8, w8)
@@ -501,7 +525,8 @@ def phase_unfused_kernels(torch, dev):
 
     # Timings at the main paths' shapes, 10 % random spikes.
     results = {name: {"max_abs_err": max_err[name], "library_ms": None,
-                      "library_note": LIBRARY_NOTE[name], "shapes": []}
+                      "library_graph_ms": None, "library_note": LIBRARY_NOTE[name],
+                      "shapes": []}
                for name in names}
     for shape_name, (m, k, n) in SHAPES.items():
         s8, w8, _, _ = _inputs(torch, dev, m, k, n, 7, seed=1)
@@ -521,6 +546,15 @@ def phase_unfused_kernels(torch, dev):
             row["library_max_abs_err"] = int((lib.long() - ref.spike_gemm_ref(
                 s8, w8).long()).abs().max())
             row["library_ms"] = _time_ms(torch, lambda: torch._int_mm(s8, w8), 20)
+            row["library_graph_ms"] = _graph_ms(torch, lambda: torch._int_mm(s8, w8))
+            # The spread of repeated runs: kernel and library in turns.
+            turns = {"kernel": [], "library": []}
+            for who in ("kernel", "library", "library", "kernel") * 2:
+                turns[who].append(_graph_ms(torch, (lambda: spike_gemm(s8, w8)) if
+                                            who == "kernel" else
+                                            (lambda: torch._int_mm(s8, w8))))
+            row["graph_ms_turns"] = turns["kernel"]
+            row["library_graph_ms_turns"] = turns["library"]
         except RuntimeError as e:  # a timing yardstick only, never used by the port
             row["library_error"] = str(e).splitlines()[0][:200]
         results["spike_gemm"]["shapes"].append(row)
@@ -804,6 +838,7 @@ QMM_TOL = {"rtol": 1e-4, "atol": 1e-4}
 FP32_LOGIT_REL = 1e-3
 LM_HEADS, LM_HEAD_SIZE, LM_CHUNK = 64, 64, 32
 CM_SHAPE = (4096, 14336)  # rwkv6-7b channel-mix key projection (K, N)
+QMM_SWEEP_M = (1, 4, 8, 16, 17)  # each side of B6's regime cut-over
 
 
 def _tol_ratio(torch, got, want, tol) -> float:
@@ -840,12 +875,13 @@ def _qmm_bound(m, k, n, bits) -> dict:
 
 def phase_lm_kernels(torch, dev):
     from repro_torch.core.quant import QuantSpec, quantize
+    from repro_torch.kernels import quant_matmul as qmm
     from repro_torch.kernels import ref
     from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.kernels.wkv_chunk import wkv_sequence
 
     t0 = time.perf_counter()
-    results = {name: {"max_abs_err": 0.0, "library_ms": None,
+    results = {name: {"max_abs_err": 0.0, "library_ms": None, "library_graph_ms": None,
                       "library_note": LIBRARY_NOTE[name], "shapes": []}
                for name in ("wkv_sequence", "quant_matmul_int8", "quant_matmul_int4")}
     worst = dict.fromkeys(results, 0.0)
@@ -872,21 +908,28 @@ def phase_lm_kernels(torch, dev):
         del ins, got, want
 
     g = torch.Generator(device=dev).manual_seed(3)
-    # Ragged shapes (every edge masked in the kernel), full-range weights.
-    for m, k, n in ((16, 64, 32), (130, 514, 258), (33, 96, 1000)):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # Ragged shapes (every edge masked in the kernels), full-range weights,
+    # on each side of the regime cut-over: the decode kernel where M <= 16
+    # and the tiled one at every M.
+    qmm_cases = 0
+    for m, k, n in ((16, 64, 32), (130, 514, 258), (33, 96, 1000)) + tuple(
+            (m, k, n) for m in QMM_SWEEP_M for k, n in ((514, 1000), (96, 258))):
         x = torch.randn((m, k), generator=g, device=dev)
         sc = torch.rand((n,), generator=g, device=dev) * 0.01 + 1e-4
         for bits in (8, 4):
             lo = -(1 << (bits - 1))
             w = torch.randint(lo, -lo, (k, n), generator=g, device=dev, dtype=torch.int8)
             wq = w if bits == 8 else ref.pack_int4(w)
-            got = quant_matmul(x, wq, sc, bits)
             want = ref.quant_matmul_ref(x, wq, sc, bits)
-            torch.cuda.synchronize()
-            ratio = _tol_ratio(torch, got, want, QMM_TOL)
-            check(ratio <= 1.0, f"quant_matmul int{bits} != plain at {(m, k, n)}: "
-                  f"{ratio:.3f} x the tolerance {QMM_TOL}")
-            worst[f"quant_matmul_int{bits}"] = max(worst[f"quant_matmul_int{bits}"], ratio)
+            for regime in _qmm_regimes(qmm, m, k, n, bits, sms):
+                got = qmm.launch(x, wq, sc, bits, regime)
+                torch.cuda.synchronize()
+                ratio = _tol_ratio(torch, got, want, QMM_TOL)
+                check(ratio <= 1.0, f"quant_matmul int{bits} != plain at {(m, k, n)} "
+                      f"regime {regime}: {ratio:.3f} x the tolerance {QMM_TOL}")
+                worst[f"quant_matmul_int{bits}"] = max(worst[f"quant_matmul_int{bits}"], ratio)
+                qmm_cases += 1
     # The channel-mix shape: a dense_init weight quantized per output channel.
     k, n = CM_SHAPE
     w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
@@ -896,6 +939,26 @@ def phase_lm_kernels(torch, dev):
         sc = sc.reshape(-1)
         wq = q if bits == 8 else ref.pack_int4(q)
         w_deq = q.to(torch.float32) * sc  # the library yardstick's weight
+        # The cut-over: each regime's device time on each side of it, and
+        # the tiled kernel as its tiles fill the card.
+        for m in QMM_SWEEP_M + (32, 128, 256):
+            x = torch.randn((m, k), generator=g, device=dev)
+            want = ref.quant_matmul_ref(x, wq, sc, bits)
+            row = {"bits": bits, "M": m, "chosen": "decode" if m <= qmm.DECODE_MAX_M
+                   else "tiled"}
+            for regime in _qmm_regimes(qmm, m, k, n, bits, sms):
+                label = "decode" if regime[0] else "tiled"
+                got = qmm.launch(x, wq, sc, bits, regime)
+                torch.cuda.synchronize()
+                ratio = _tol_ratio(torch, got, want, QMM_TOL)
+                check(ratio <= 1.0, f"{name} {label} != plain at M={m}: {ratio:.3f} x "
+                      f"the tolerance {QMM_TOL}")
+                worst[name] = max(worst[name], ratio)
+                row[f"{label}_graph_ms"] = _graph_ms(
+                    torch, lambda: qmm.launch(x, wq, sc, bits, regime))
+            row["library_graph_ms"] = _graph_ms(torch, lambda: torch.matmul(x, w_deq))
+            results[name].setdefault("regimes", []).append(row)
+            emit({"phase": "qmm_regime", **row})
         for m in (4, 512):
             x = torch.randn((m, k), generator=g, device=dev)
             got = quant_matmul(x, wq, sc, bits)
@@ -915,6 +978,7 @@ def phase_lm_kernels(torch, dev):
                    "plain_ms": _time_ms(torch, lambda: ref.quant_matmul_ref(
                        x, wq, sc, bits), 5),
                    "library_ms": _time_ms(torch, lambda: torch.matmul(x, w_deq), 20),
+                   "library_graph_ms": _graph_ms(torch, lambda: torch.matmul(x, w_deq)),
                    "library_max_abs_err": float((lib - want).abs().max()),
                    **_qmm_bound(m, k, n, bits)}
             results[name]["shapes"].append(row)
@@ -922,7 +986,8 @@ def phase_lm_kernels(torch, dev):
         del q, wq, w_deq
     emit({"phase": "lm_kernels_vs_plain", "tolerance": {"wkv": WKV_TOL,
                                                         "quant_matmul": QMM_TOL},
-          "worst_tol_ratio": worst, "seconds": round(time.perf_counter() - t0, 3)})
+          "quant_matmul_ragged_cases": qmm_cases, "worst_tol_ratio": worst,
+          "seconds": round(time.perf_counter() - t0, 3)})
     # Headlines at the main path's shapes: a served prompt's prefill (B=1,
     # S=64) for B7, the decode slots' channel-mix (M=4) for B6.
     for name, shape in (("wkv_sequence", "B=1 S=64"), ("quant_matmul_int8", "M=4"),
@@ -932,7 +997,13 @@ def phase_lm_kernels(torch, dev):
             "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")})
         if name != "wkv_sequence":
             results[name]["library_ms"] = main["library_ms"]
+            results[name]["library_graph_ms"] = main["library_graph_ms"]
     return results
+
+
+def _qmm_regimes(qmm, m, k, n, bits, sms) -> list:
+    """The tiled regime, and the decode regime where M allows it."""
+    return [qmm.TILED] + ([qmm.plan(m, k, n, bits, sms)] if m <= qmm.DECODE_MAX_M else [])
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,8 @@ CASES = [
     (64, 64, 32, 0.2, 7, 1, False, True, False),
     (45, 288, 2, 0.1, 11, 3, True, True, True),
     (33, 40, 5, 0.0, 7, 2, False, False, True),   # all-zero spikes
+    (300, 288, 2, 0.1, 7, 0, True, False, True),  # the flow net's last layer
+    (200, 18, 16, 0.2, 7, 3, False, True, False), # the gesture net's first
 ]
 
 
@@ -107,6 +109,56 @@ def test_spike_tile_bitmap_matches_jax(jax_ref, shape, block, density):
     assert_same(got, want)
 
 
+# (m, k, n): the main paths' B1 shapes and ragged ones.
+PLAN_SHAPES = [(221184, 288, 32), (221184, 288, 2), (16384, 144, 16),
+               (16384, 18, 16), (4096, 144, 16), (4, 64, 11), (257, 70, 33),
+               (37, 1300, 32), (1, 5, 100)]
+
+
+@pytest.mark.parametrize("mkn", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("sms", [132, 8])
+def test_tc_plan_geometry(mkn, sms):
+    """B1's launch geometry: a persistent grid no larger than the tiles or
+    the card, 2-4 ring stages, and shared memory within a block's share."""
+    m, k, n = mkn
+    grid_x, stages = fk.tc_plan(m, k, n, sms)
+    slabs, tiles = -(-n // 32), -(-m // 64)
+    assert 1 <= grid_x <= tiles and 2 <= stages <= 4
+    assert grid_x * slabs <= max(slabs, 4 * sms)
+    smem = fk.tc_smem(k, n, stages)
+    per_sm = -(-grid_x * slabs // sms)  # the grid's blocks all fit at once
+    assert smem <= 227 * 1024 and per_sm * (smem + 1024) <= 228 * 1024
+
+
+def test_tc_plan_main_shapes():
+    """The flow middle layer: 2 blocks per SM, 3 stages of 64 x 288 spikes
+    and 64 x 32 Vmem (26,752 bytes each) beside the 9,728-byte weight slab."""
+    assert fk.tc_plan(221184, 288, 32, 132) == (264, 3)
+    assert fk.tc_smem(288, 32, 3) == 128 + 9728 + 3 * (18560 + 8192)
+    # A slab of channels past 32 reads Vmem from device memory: no Vmem stage.
+    assert fk.tc_smem(288, 33, 2) == 128 + 9728 + 2 * 18560
+
+
+def test_tc_plan_rejects_large_fan_in():
+    with pytest.raises(ValueError, match="fan-in K=1500"):
+        fk.tc_plan(1000, 1500, 32, 132)
+
+
+def test_kernel_times_tool_needs_a_card():
+    """tools/torch_kernel_times.py measures the card only: without one it
+    exits 2 and prints no result."""
+    import pathlib
+    import subprocess
+    import sys
+
+    if torch.cuda.is_available():
+        pytest.skip("there is a card: the tool would time it")
+    tool = pathlib.Path(__file__).resolve().parents[1] / "tools" / "torch_kernel_times.py"
+    r = subprocess.run([sys.executable, str(tool)], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 2 and r.stdout == "", (r.returncode, r.stdout, r.stderr)
+
+
 def test_wrappers_refuse_other_devices():
     """No silent fallback: a tensor that is neither CPU nor CUDA raises."""
     s = torch.zeros((4, 8), dtype=torch.int8, device="meta")
@@ -139,4 +191,29 @@ def test_cuda_kernels_match_plain(cuda_device, case):
         torch.cuda.synchronize()
         for g, p in zip(got, plain):
             assert g.is_cuda
+            assert_same(g, p)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_int_thresholds_views_and_launches(cuda_device):
+    """B1 on the card: a scalar threshold equals the same value per channel,
+    a spike matrix that starts off 16-byte alignment gives the same result,
+    and each call launches the kernel once."""
+    s, w, v, _ = _inputs(333, 144, 16, 0.1, 7, False)
+    s_d, w_d, v_d = (torch.from_numpy(x).to(cuda_device) for x in (s, w, v))
+    kw = dict(leak_shift=3, soft_reset=False, vmem_bits=7)
+    want = ref.fused_lif_gemm_int_ref(*(torch.from_numpy(x) for x in (s, w, v)), 5, **kw)
+    before = fk.LAUNCHES["fused_lif_gemm_int"]
+    scalar = fk.fused_lif_gemm_int(s_d, w_d, v_d, 5, **kw)
+    vector = fk.fused_lif_gemm_int(s_d, w_d, v_d, torch.full(
+        (16,), 5, dtype=torch.int32, device=cuda_device), **kw)
+    flat = torch.zeros(s.size + 1, dtype=torch.int8, device=cuda_device)
+    shifted = flat[1:].view(s.shape)
+    shifted.copy_(s_d)
+    assert shifted.data_ptr() % 16 != 0
+    view = fk.fused_lif_gemm_int(shifted, w_d, v_d, 5, **kw)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fused_lif_gemm_int"] == before + 3
+    for got in (scalar, vector, view):
+        for g, p in zip(got, want):
             assert_same(g, p)

@@ -167,6 +167,37 @@ def test_quant_matmul_rejects_mismatched_shapes():
         qk.quant_matmul(x, w, sc, bits=4)
 
 
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 8, 9, 16, 17, 512])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kn", [(4096, 14336), (514, 1000), (96, 258)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_quant_matmul_plan(m, bits, kn):
+    """The regime: the decode kernel up to DECODE_MAX_M rows of x, with a
+    row tile covering them and K split into at most 8 ranges (one cluster)
+    of whole load groups, as many as one wave holds; the tiled kernel
+    above."""
+    k, n = kn
+    mt, rpb = qk.plan(m, k, n, bits, sms=132)
+    if m > qk.DECODE_MAX_M:
+        assert (mt, rpb) == qk.TILED
+        return
+    assert mt in (4, 8, 16) and m <= mt and (mt == 4 or mt // 2 < m)
+    cpt = 64 // mt
+    rows = k // (2 if bits == 4 else 1)
+    splits = -(-rows // rpb)
+    assert rpb % (64 // cpt) == 0                # whole load groups
+    assert splits * rpb >= rows > (splits - 1) * rpb
+    col_blocks = -(-n // (32 * cpt))
+    assert 1 <= splits <= 8 and (splits == 1 or col_blocks * splits <= 2 * 132)
+
+
+def test_quant_matmul_plan_main_shape():
+    """The served channel-mix at M = 4: 28 column blocks of 512 x 8 K
+    ranges, 224 blocks in one wave of 2 per SM on 132 SMs."""
+    assert qk.plan(4, 4096, 14336, 8, sms=132) == (4, 512)
+    assert qk.plan(4, 4096, 14336, 4, sms=132) == (4, 256)
+
+
 def test_quant_matmul_op_and_quant_envelope():
     """The op equals the wrapper, and a per-channel quantized product stays
     within quantization noise of the float one (the reference's check)."""
@@ -230,3 +261,22 @@ def test_cuda_quant_matmul_matches_plain(cuda_device, bits, mkn):
     torch.cuda.synchronize()
     assert LAUNCHES[f"quant_matmul_int{bits}"] == before + 1
     _close(got, want, QMM_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kn", [(514, 1000), (96, 258)], ids=lambda s: "x".join(map(str, s)))
+def test_cuda_quant_matmul_regimes_match_plain(cuda_device, m, bits, kn):
+    """Both regimes on each side of the cut-over, ragged K and N: the
+    decode kernel (m <= 16) and the tiled one (every m) within tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, sc = (t.to(cuda_device) for t in _torch(*_qmm_inputs(m, *kn, bits)))
+    wq = w if bits == 8 else ref.pack_int4(w)
+    want = ref.quant_matmul_ref(x, wq, sc, bits)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    regimes = [qk.TILED] + ([qk.plan(m, *kn, bits, sms)] if m <= qk.DECODE_MAX_M else [])
+    for regime in regimes:
+        got = qk.launch(x, wq, sc, bits, regime)
+        torch.cuda.synchronize()
+        _close(got, want, QMM_TOL)
