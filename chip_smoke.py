@@ -11,17 +11,21 @@ Phases, each printing JSON lines:
   2. kernels    each CUDA kernel against its plain PyTorch version on the
                 card at the main paths' real shapes (gesture conv layers
                 M=4*4096 K=18 and K=144 N=16; optical-flow middle and last
-                layers M=2*110592 K=288 N=32 and N=2): the integer kernels
+                layers M=2*110592 K=288 N=32 and N=2), and for B1, B2 and
+                B4 also N=33 and a ragged (4097, 145, 16), and for B2 and
+                B4 a fan-in beyond the tensor-core ring (4096, 2000, 32),
+                so both routes of each plan run: the integer kernels
                 bit-exact, the
                 float ones within the float tolerance (Vmem atol=rtol=1e-5,
                 spikes equal except where the pre-reset Vmem lies within
                 1e-5 of the threshold, each such spot counted); scalar and
-                per-channel thresholds, every skip mode, hard and soft
-                reset, T=4 and T=3 slabs, 0 % and 10 % random spikes.  Then
-                timings: CUDA events over eager launches (``ms``, host
-                overhead included) and over a CUDA-graph replay of 100
-                launches (``graph_ms``, the device time per launch), and
-                the library yardstick the same two ways where one exists
+                per-channel thresholds, every skip mode and both of B4's
+                stores, hard and soft reset, T in {1, 3, 4, 5}, 0 % and
+                10 % random spikes.  Then timings: CUDA events over eager
+                launches (``ms``, host overhead included) and over a
+                CUDA-graph replay of 100 launches (``graph_ms``, the device
+                time per launch), each row with its launch plan, and the
+                library yardstick the same two ways where one exists
                 (``library_ms``, ``library_graph_ms``)
   3. gesture    the Table II gesture network at full width (64x64, T=20,
                 4-bit) serving 8 requests through BatchWorker at capacity 4,
@@ -249,6 +253,15 @@ SHAPES = {  # name: (M, K, N) as the main path gives them
     "flow_middle": (2 * 288 * 384, 288, 32),
     "flow_last": (2 * 288 * 384, 288, 2),
 }
+# Checked beside SHAPES: a fan-in whose two ring stages do not fit in a
+# block's shared memory (B2's and B4's tile-loop route; B1 refuses it), N =
+# 33 (two slabs), and a ragged M with an odd K (a short last tile, and B2's
+# planes starting off 16 bytes).
+EDGE_SHAPES = {
+    "wide_fan_in": (4096, 2000, 32),
+    "n33": (4096, 288, 33),
+    "ragged": (4097, 145, 16),
+}
 
 
 def _inputs(torch, dev, m, k, n, vmem_bits, t=None, density=0.1, seed=0):
@@ -321,17 +334,40 @@ def _bound(s, m, k, n, t) -> dict:
     return _roofline(nbytes, 2 * int((s != 0).sum()) * n, INT8_OPS_PER_S)
 
 
+def _plan_row(plan) -> dict:
+    return {"route": plan.route, "grid_x": plan.grid_x, "stages": plan.stages}
+
+
+def _check_smem() -> None:
+    """The wrappers' plans size shared memory as the kernels lay it out."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_lif_gemm as fl
+    from repro_torch.kernels import spike_gemm as sk
+
+    sg = _build.bind("spike_gemm", sk._SIGNATURES)
+    for shape_name, (m, k, n) in {**SHAPES, **EDGE_SHAPES}.items():
+        pairs = [("B2 tile loop", fl._fn("spidr_fused_lif_gemm_int_tblk_tile_smem")(k)
+                  + fl._TILE_STATIC, fl.tblk_tile_smem(k))]
+        for stages in range(2, 9):
+            if stages <= 4:
+                pairs.append((f"B1 stages={stages}", fl._fn(
+                    "spidr_fused_lif_gemm_int_smem")(k, n, stages), fl.tc_smem(k, n, stages)))
+            pairs.append((f"B2 stages={stages}", fl._fn(
+                "spidr_fused_lif_gemm_int_tblk_smem")(k, n, stages), fl.tblk_smem(k, n, stages)))
+            for store in ("frag", "bulk"):
+                pairs.append((f"B4 stages={stages} {store}", sg["spidr_spike_gemm_smem"](
+                    k, n, stages, int(store == "bulk")), sk.ring_smem(k, n, stages, store)))
+        for what, c_bytes, py_bytes in pairs:
+            check(c_bytes == py_bytes, f"{what} at {shape_name}: the wrapper's "
+                  f"shared memory {py_bytes} != the kernel's {c_bytes}")
+
+
 def phase_kernels(torch, dev, fk):
     from repro_torch.kernels import fused_lif_gemm as fl
     from repro_torch.kernels import ref
 
-    # B1's launch plan sizes shared memory as the kernel lays it out.
-    for shape_name, (m, k, n) in SHAPES.items():
-        for stages in (2, 3, 4):
-            c_bytes = fl._fn("spidr_fused_lif_gemm_int_smem")(k, n, stages)
-            check(c_bytes == fl.tc_smem(k, n, stages), f"B1 at {shape_name}: the "
-                  f"wrapper's shared memory {fl.tc_smem(k, n, stages)} != the "
-                  f"kernel's {c_bytes}")
+    _check_smem()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     plain = {"fused_lif_gemm_int": ref.fused_lif_gemm_int_ref,
              "fused_lif_gemm_int_tblk": ref.fused_lif_gemm_int_tblk_ref}
@@ -339,10 +375,15 @@ def phase_kernels(torch, dev, fk):
               "fused_lif_gemm_int_tblk": fk.fused_lif_gemm_int_tblk}
     max_err = {name: 0 for name in kernel}
     checked = {name: 0 for name in kernel}
+    routes = set()
     t0 = time.perf_counter()
-    for shape_name, (m, k, n) in SHAPES.items():
+    for shape_name, (m, k, n) in {**SHAPES, **EDGE_SHAPES}.items():
         for name, ts in (("fused_lif_gemm_int", (None,)),
-                         ("fused_lif_gemm_int_tblk", (4, 3))):
+                         ("fused_lif_gemm_int_tblk", (4, 3, 1, 5))):
+            if name == "fused_lif_gemm_int" and shape_name == "wide_fan_in":
+                continue  # B1's plan refuses a fan-in beyond its ring
+            if name == "fused_lif_gemm_int_tblk":
+                routes.add(fl.tblk_plan(m, k, n, sms).route)
             for t in ts:
                 for density in (0.1, 0.0):
                     s, w, v, thr_vec = _inputs(torch, dev, m, k, n, 7, t=t,
@@ -363,34 +404,37 @@ def phase_kernels(torch, dev, fk):
                                           f"soft={soft} skip={skip} density={density}: "
                                           f"max abs err {err}")
                                 checked[name] += 1
+    check(routes == {"ring", "tile"}, f"B2's checks ran the routes {routes}, "
+          "not both")
     small = _small_engine_check(torch, dev)
     emit({"phase": "kernels_vs_plain", "bit_exact": True, "cases": checked,
-          "max_abs_err": max_err, "engine_small_cpu_vs_card": small,
+          "max_abs_err": max_err, "b2_routes": sorted(routes),
+          "engine_small_cpu_vs_card": small,
           "seconds": round(time.perf_counter() - t0, 3)})
 
     # Timings at the main path's shapes: the network's neuron program
-    # (4-bit: 7-bit Vmem), scalar threshold, skip_empty on, 10% random spikes.
+    # (4-bit: 7-bit Vmem), scalar threshold (a kernel argument for both),
+    # skip_empty on, 10% random spikes.
     results = {name: {"max_abs_err": max_err[name], "library_ms": None,
                       "library_graph_ms": None, "library_note": LIBRARY_NOTE[name],
                       "shapes": []}
                for name in kernel}
     for shape_name, (m, k, n) in SHAPES.items():
-        for name, t in (("fused_lif_gemm_int", None), ("fused_lif_gemm_int_tblk", 4)):
+        for name, t in (("fused_lif_gemm_int", None), ("fused_lif_gemm_int_tblk", 4),
+                        ("fused_lif_gemm_int_tblk", 5)):
             s, w, v, _ = _inputs(torch, dev, m, k, n, 7, t=t, seed=1)
             kw = dict(leak_shift=3, soft_reset=False, vmem_bits=7)
-            # B1 takes an int threshold as a kernel argument; B2's wrapper
-            # fills an (N,) vector for one, so its graph gets the vector.
-            thr = 5 if name == "fused_lif_gemm_int" else torch.full(
-                (n,), 5, dtype=torch.int32, device=dev)
             k_ms = _time_ms(torch, lambda: kernel[name](s, w, v, 5, **kw), 20)
-            g_ms = _graph_ms(torch, lambda: kernel[name](s, w, v, thr, **kw))
+            g_ms = _graph_ms(torch, lambda: kernel[name](s, w, v, 5, **kw))
             p_ms = _time_ms(torch, lambda: plain[name](s, w, v, 5, **kw), 5)
             row = {"shape": shape_name, "T": t, "M": m, "K": k, "N": n,
                    "ms": k_ms, "graph_ms": g_ms, "plain_ms": p_ms,
                    **_bound(s, m, k, n, t)}
             if t is None:  # B1's persistent grid and ring
-                row["grid_x"], row["stages"] = fl.tc_plan(
-                    m, k, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+                row["route"] = "ring"
+                row["grid_x"], row["stages"] = fl.tc_plan(m, k, n, sms)
+            else:
+                row.update(_plan_row(fl.tblk_plan(m, k, n, sms)))
             results[name]["shapes"].append(row)
             emit({"phase": "kernel_timing", "kernel": name, **row})
             del s, w, v
@@ -455,15 +499,37 @@ def _pre_reset(v, current, leak):
 
 def phase_unfused_kernels(torch, dev):
     from repro_torch.kernels import ref
+    from repro_torch.kernels import spike_gemm as sk
     from repro_torch.kernels.fused_lif_gemm import fused_lif_gemm
     from repro_torch.kernels.lif_step import lif_step_fused, lif_step_fused_int
     from repro_torch.kernels.spike_gemm import spike_gemm
 
     t0 = time.perf_counter()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     names = ("fused_lif_gemm", "spike_gemm", "lif_step_fused", "lif_step_fused_int")
     max_err = dict.fromkeys(names, 0)
     cases = dict.fromkeys(names, 0)
     flips = {"fused_lif_gemm": 0, "lif_step_fused": 0}
+    b4_routes = set()
+
+    def hold_b4(s8, w8, what):
+        """B4 in every skip mode and with both of the ring's stores."""
+        want = ref.spike_gemm_ref(s8, w8)
+        (m, k), n = s8.shape, w8.shape[1]
+        for store in ("frag", "bulk"):
+            plan = sk.plan(m, k, n, sms, store)
+            b4_routes.add(plan.route)
+            for skip_empty, mode in SKIPS:
+                got = sk.launch(s8, w8, plan, skip_empty, mode)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                max_err["spike_gemm"] = max(max_err["spike_gemm"], err)
+                check(err == 0, f"spike_gemm != plain {what} skip_empty="
+                      f"{skip_empty} mode={mode} plan={plan}: {err}")
+                cases["spike_gemm"] += 1
+        got = spike_gemm(s8, w8)  # the public wrapper, its own plan
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"spike_gemm != plain {what} (wrapper)")
 
     def hold_float(name, res, what):
         check(res["ok"], f"{name} disagrees with plain {what}: {res}")
@@ -471,18 +537,14 @@ def phase_unfused_kernels(torch, dev):
         flips[name] += res["spikes_flipped"]
         cases[name] += 1
 
+    for shape_name, (m, k, n) in EDGE_SHAPES.items():
+        for density in (0.1, 0.0):
+            s8, w8, _, _ = _inputs(torch, dev, m, k, n, 7, density=density)
+            hold_b4(s8, w8, f"at {shape_name} density={density}")
     for shape_name, (m, k, n) in SHAPES.items():
         for density in (0.1, 0.0):
             s8, w8, _, _ = _inputs(torch, dev, m, k, n, 7, density=density)
-            want = ref.spike_gemm_ref(s8, w8)
-            for skip_empty, mode in SKIPS:
-                got = spike_gemm(s8, w8, skip_empty=skip_empty, skip_mode=mode)
-                torch.cuda.synchronize()
-                err = int((got.long() - want.long()).abs().max())
-                max_err["spike_gemm"] = max(max_err["spike_gemm"], err)
-                check(err == 0, f"spike_gemm != plain at {shape_name} density="
-                      f"{density} skip_empty={skip_empty} mode={mode}: {err}")
-                cases["spike_gemm"] += 1
+            hold_b4(s8, w8, f"at {shape_name} density={density}")
             s, w, v = _float_inputs(torch, dev, m, k, n, density)
             current = s @ w
             for leak, soft in ((0.95, False), (1.0, True)):
@@ -517,8 +579,11 @@ def phase_unfused_kernels(torch, dev):
                 check(err == 0, f"lif_step_fused_int != plain at {shape_name} "
                       f"shift={shift} soft={soft}: {err}")
             cases["lif_step_fused_int"] += 1
+    check(b4_routes == {"ring", "tile"}, f"B4's checks ran the routes {b4_routes}, "
+          "not both")
     emit({"phase": "unfused_kernels_vs_plain", "cases": cases,
-          "max_abs_err": max_err, "spikes_flipped_near_threshold": flips,
+          "max_abs_err": max_err, "b4_routes": sorted(b4_routes),
+          "spikes_flipped_near_threshold": flips,
           "tolerance": {"int": 0, "float_vmem_atol_rtol": 1e-5,
                         "float_spike_flip_band": 1e-5},
           "seconds": round(time.perf_counter() - t0, 3)})
@@ -531,7 +596,9 @@ def phase_unfused_kernels(torch, dev):
     for shape_name, (m, k, n) in SHAPES.items():
         s8, w8, _, _ = _inputs(torch, dev, m, k, n, 7, seed=1)
         nnz = int((s8 != 0).sum())
-        row = {"shape": shape_name, "M": m, "K": k, "N": n,
+        plan = sk.plan(m, k, n, sms)
+        row = {"shape": shape_name, "M": m, "K": k, "N": n, **_plan_row(plan),
+               "store": plan.store,
                "ms": _time_ms(torch, lambda: spike_gemm(s8, w8), 20),
                "graph_ms": _graph_ms(torch, lambda: spike_gemm(s8, w8)),
                "graph_ms_by_mode": {
@@ -539,8 +606,17 @@ def phase_unfused_kernels(torch, dev):
                    _graph_ms(torch, lambda: spike_gemm(s8, w8, skip_empty=skip,
                                                          skip_mode=m_))
                    for skip, m_ in SKIPS},
+               # The bitmap mode's prologue alone (plain PyTorch).
+               "bitmap_prologue_graph_ms": _graph_ms(
+                   torch, lambda: ref.spike_tile_bitmap(s8, sk.CUDA_TILE)),
                "plain_ms": _time_ms(torch, lambda: ref.spike_gemm_ref(s8, w8), 5),
                **_roofline(m * k + k * n + 4 * m * n, 2 * nnz * n, INT8_OPS_PER_S)}
+        # The ring's two output stores, in turns (the plan picks one by shape).
+        stores = {"frag": [], "bulk": []}
+        for store in ("frag", "bulk", "bulk", "frag") * 2:
+            p = sk.plan(m, k, n, sms, store)
+            stores[store].append(_graph_ms(torch, lambda: sk.launch(s8, w8, p)))
+        row["graph_ms_by_store_turns"] = stores
         try:
             lib = torch._int_mm(s8, w8)
             row["library_max_abs_err"] = int((lib.long() - ref.spike_gemm_ref(
@@ -819,6 +895,9 @@ def check_quickstart(torch, dev, out, results) -> None:
                "spike_density": float((s != 0).to(torch.float32).mean()),
                "tiles": bitmap.numel(),
                "empty_tile_share": 1.0 - float(bitmap.to(torch.float32).mean()),
+               # What the ring skips: 64-row tiles whose flags are all zero.
+               "empty_row_tile_share": 1.0 - float(
+                   bitmap.any(dim=1).to(torch.float32).mean()),
                "graph_ms": {("dense" if not skip else mode):
                             _graph_ms(torch, lambda: spike_gemm(
                                 s, w, skip_empty=skip, skip_mode=mode))

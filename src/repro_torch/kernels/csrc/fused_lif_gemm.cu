@@ -1,17 +1,19 @@
 // Fused spike-GEMM + neuron update for Hopper (sm_90a).
 //
-// Three kernels, each replacing one Pallas TPU kernel of the JAX package:
+// Four kernels, each replacing one Pallas TPU kernel of the JAX package:
 //
 //   lif_gemm_tc_kernel              replaces repro/kernels/fused_lif_gemm.py
 //                                   fused_lif_gemm_int (_fused_int_body via
 //                                   _fused_kernel_int / _fused_kernel_int_vec)
-//   fused_lif_gemm_int_tblk_kernel  replaces fused_lif_gemm_int_tblk
-//                                   (_tblk_int_body via _tblk_kernel_scalar /
-//                                   _tblk_kernel_vec, bitmap prologue fused in)
+//   lif_gemm_tblk_tc_kernel         replaces fused_lif_gemm_int_tblk
+//   fused_lif_gemm_int_tblk_kernel  (_tblk_int_body via _tblk_kernel_scalar /
+//                                   _tblk_kernel_vec, bitmap prologue fused in):
+//                                   the ring kernel, and the tile loop for a
+//                                   fan-in whose ring does not fit
 //   fused_lif_gemm_f32_kernel       replaces fused_lif_gemm (float,
 //                                   _fused_kernel_f32); see its own note below
 //
-// What the two integer kernels compute, for each output (m, n) and timestep:
+// What the integer kernels compute, for each output (m, n) and timestep:
 //   acc      = sum_k S[m,k] * W[k,n]                  (int32, exact)
 //   partial  = clip(acc, v_min, v_max)                (clipped once, before the add)
 //   v        = v - (v >> leak_shift)  if leak_shift > 0   (arithmetic shift)
@@ -22,52 +24,56 @@
 // What bounds them on this card: bytes.  Spikes are one byte per (m, k);
 // Vmem in and Vmem/spikes out are four bytes per (m, n).  The optical-flow
 // middle layer at B=2 (M = 221184, K = 288, N = 32) moves 149 MB (0.044 ms
-// at 3.35 TB/s) for 4 GOP of products.
+// at 3.35 TB/s) for 4 GOP of products per timestep.
 //
 // B1, one timestep (lif_gemm_tc_kernel).  At that shape a __dp4a +
 // shared-load instruction stream on the CUDA cores alone takes about as
 // long as the bytes, so nothing would be left to hide the loads behind,
-// and a block that loads, then multiplies, keeps little in flight.  So:
-//   * Products on the int8 tensor cores (mma.sync m16n8k32, s8 x s8 ->
-//     s32, exact): a warp owns 16 rows, N is covered by n8 tiles (N = 2 is
-//     one tile, N = 16 two), so no lanes are spent on absent channels.
-//   * A persistent grid (1 to 4 blocks of 4 warps per SM, as shared memory
-//     allows) walks 64-row M tiles.  Each block loads its (K, <= 32) weight
-//     slab once, transposed and zero-padded to a multiple of 32 in K, into
-//     shared memory.  A fan-in whose two ring stages do not fit beside it
-//     (K above ~1,350 at N = 32; the networks' K is at most 288) is refused
-//     by the wrapper.
-//   * A tile's spikes (64 x K bytes) and Vmem (64 x N int32) are each one
-//     contiguous range of device memory: one thread moves them with 1-D
-//     bulk copies (TMA, cp.async.bulk) into a ring of 2-4 shared-memory
-//     stages whose full barriers (mbarrier, transaction counts) tell the
-//     warps when a tile has landed.  Tiles i+1 .. i+stages-1 are in flight
-//     while tile i is multiplied.
-//   * The A fragments come straight from the packed rows (ldmatrix when K %
-//     16 == 0, byte loads otherwise); k past K reads the next row's bytes,
-//     which meet zero weights.
-//   * The neuron program runs on the accumulator fragment; v' and s are
+// and a block that loads, then multiplies, keeps little in flight.  So it
+// runs on the tensor-core ring of tc_ring.cuh:
+//   * a persistent grid (1 to 4 blocks of 4 warps per SM, as shared memory
+//     allows) walks 64-row M tiles, each block's weight slab resident in
+//     shared memory; a fan-in whose two ring stages do not fit beside it
+//     (K above ~1,350 at N = 32; the networks' K is at most 288) is
+//     refused by the wrapper;
+//   * a stage holds a tile's spikes (64 x K bytes) and, when one slab
+//     covers N, its Vmem (64 x N int32), both brought by 1-D bulk copies;
+//     tiles i+1 .. i+stages-1 are in flight while tile i is multiplied;
+//   * the neuron program runs on the accumulator fragment; v' and s are
 //     written once, 8-byte stores filling whole 32-byte sectors.  A scalar
-//     threshold is a kernel argument (no (N,) fill per launch).
+//     threshold is a kernel argument (no (N,) fill per launch);
 //   * skip_empty has no effect: tensor-core products of an empty tile cost
 //     less than the vote that would skip them, and the bytes are read anyway.
 //
-// B2, T_blk (fused_lif_gemm_int_tblk_kernel), differs from the TPU design:
-//   * The Pallas grid revisits its output block across the k axis, which
-//     is sequential only on a TPU.  Here one block owns a (BM, BN) output
-//     tile and loops over K itself; blocks run in any order.
-//   * Empty (BM, BK) spike tiles are skipped by a block-wide vote
-//     (__syncthreads_or) instead of a reduction or a host-side bitmap.
-//   * It does not hold T*bm*bn accumulators: it loads the block's whole
-//     (K, BN) weight slice into shared memory once, then walks t in order,
-//     carrying the Vmem tile in registers across timesteps (the chip's
-//     Vmem-stationary reuse).  __dp4a on CUDA cores; the threshold is an
-//     (N,) operand (the wrapper broadcasts a scalar).
-//   * Ragged M, K and N edges are masked in-kernel; nothing is padded in
-//     device memory.
-// Its tile loop (staging, __dp4a) is spike_tile.cuh, shared with
-// spike_gemm.cu.
+// B2, T timesteps per weight pass (lif_gemm_tblk_tc_kernel), is B1 with a
+// loop over t and Vmem held in registers:
+//   * the same persistent grid and resident weight slab, loaded once per
+//     block for all tiles and all t (the chip's Vmem-stationary reuse);
+//   * the T spike tiles (tile, t) of a block stream through the ring as
+//     successive stages, so copies stay in flight across the t boundary and
+//     across the tile boundary.  A stage holds spikes only;
+//   * a tile's (64, N) Vmem is loaded once, by bulk copy into its own
+//     buffer (one slab covers N) or by plain loads (N > 32), into the
+//     accumulator-fragment layout in registers, and carried across t; the
+//     next tile's Vmem copy starts as soon as this one is in registers;
+//   * for each t: mma.sync over K, the neuron program on the fragment,
+//     v_traj[t] and s[t] written once.  A scalar threshold is an argument;
+//   * plane t of the spike stack starts at t*M*K bytes, which need not be
+//     16-byte aligned: its copy starts at the 16-byte boundary below and
+//     the warps read the stage from that offset (at most 15 bytes), and it
+//     ends on the next 16-byte boundary (bytes of the next tile, into the
+//     stage's slack) except at the end of the stack; hence 48 bytes of
+//     slack past 64 x K;
+//   * skip_empty has no effect, as in B1.
+// A fan-in whose two ring stages do not fit takes the tile loop below
+// (fused_lif_gemm_int_tblk_kernel, the first design): the block's whole
+// (K, 32) weight slice in shared memory (K up to ~7,000), (64, 64) spike
+// tiles staged by the block and skipped when a block-wide vote
+// (__syncthreads_or) finds them empty (skip_empty), __dp4a on CUDA cores,
+// Vmem carried in registers.  The wrapper's plan (tblk_plan) picks the
+// route by shape before launching.
 #include "spike_tile.cuh"
+#include "tc_ring.cuh"
 
 namespace {
 
@@ -89,106 +95,56 @@ __device__ __forceinline__ int neuron(int acc, int v, int thr,
   return s ? 0 : v;
 }
 
+constexpr int TC_MAX_STAGES = 4;    // B1's ring
+constexpr int TBLK_MAX_STAGES = 8;  // B2's ring (spikes-only stages)
+constexpr int B1_SLACK = 32;        // stage bytes past 64 x K (see tc_ring.cuh)
+constexpr int B2_SLACK = 48;        // ... plus a plane's misalignment
+
+// B1's shared memory: barriers, the weight slab, then `stages` stages of
+// the tile's spikes and (one slab covers N) Vmem.  The wrapper mirrors it
+// (kernels/_ring.py).
+inline int tc_smem(int K, int N, int stages) {
+  const TcLayout lay(K, N, B1_SLACK);
+  return TC_BARRIER_BYTES + lay.w_bytes + stages * (lay.s_bytes + lay.v_bytes);
+}
+
+// B2's: barriers (the stages' full barriers, then the Vmem barrier at byte
+// 64), the weight slab, the Vmem buffer (one slab covers N), the stages.
+inline int tblk_smem(int K, int N, int stages) {
+  const TcLayout lay(K, N, B2_SLACK);
+  return TC_BARRIER_BYTES + lay.w_bytes + lay.v_bytes + stages * lay.s_bytes;
+}
+
+// The thresholds of this thread's columns n0 + 8j + 2tig + c.
+template <int NT>
+__device__ __forceinline__ void load_thresholds(const int32_t* __restrict__ THR,
+                                                int thr_scalar, int N, int n0,
+                                                int (&thr)[NT][2]) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int n = n0 + j * 8 + tig * 2 + c;
+      thr[j][c] = THR == nullptr ? thr_scalar : (n < N ? THR[n] : 0);
+    }
+}
+
 // ---------------------------------------------------------------------------
 // B1: one integer layer-timestep on the int8 tensor cores (see the header).
 // ---------------------------------------------------------------------------
-constexpr int TC_BM = 64;           // rows per M tile: 4 warps x 16
-constexpr int TC_THREADS = 128;
-constexpr int TC_NB = 32;           // channels per block; grid.y walks slabs
-constexpr int TC_MAX_STAGES = 4;
-constexpr int TC_SMEM_MAX = 227 * 1024;
-
-__host__ __device__ inline int round_up(int x, int a) { return (x + a - 1) / a * a; }
-
-// Shared memory of lif_gemm_tc_kernel, in bytes from its base: the stages'
-// full barriers in [0, 128); the weight slab, n-major, TC_NB rows of
-// w_stride bytes (K padded to 32, +16 so the B-fragment loads of 8 rows x 4
-// lanes hit 32 banks); then `stages` stages, each the tile's spikes (64 x K
-// bytes, +32 for the last chunk's overrun) and, when the block's slab is
-// all of N, its Vmem (64 x N int32).  The wrapper mirrors this (tc_smem).
-struct TcLayout {
-  int w_stride, w_bytes, s_bytes, stage_bytes;
-  __host__ __device__ TcLayout(int K, int N)
-      : w_stride(round_up(K, 32) + 16),
-        w_bytes(round_up(TC_NB * w_stride, 128)),
-        s_bytes(round_up(TC_BM * K + 32, 128)),
-        stage_bytes(s_bytes + (N <= TC_NB ? round_up(TC_BM * N * 4, 128) : 0)) {}
-  __host__ __device__ int total(int stages) const {
-    return 128 + w_bytes + stages * stage_bytes;
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count) : "memory");
-}
-
-// Arrive once and expect `bytes` from bulk copies before the phase completes.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// 1-D bulk copy (TMA) of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from device memory into shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
-      "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += A (16x32 s8, row) x B (32x8 s8, col), int32 and exact.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Thread 0: start the bulk copies of tile `tile` into stage `st`.  The
-// tile's spikes and Vmem are contiguous in device memory; a tail of under
-// 16 bytes (a ragged last tile) is copied by plain loads, which the
-// barriers between this call and the stage's use publish.
+// Thread 0: start the bulk copies of tile `tile` (spikes, and Vmem when
+// vpre) into stage `st`.
 __device__ __forceinline__ void issue_tile(const int8_t* S, const int32_t* V,
                                            int M, int K, int N, bool vpre,
                                            int tile, uint8_t* st, int s_bytes,
                                            uint64_t* bar) {
   const int64_t m0 = int64_t(tile) * TC_BM;
-  const uint32_t rows = uint32_t(min(int64_t(TC_BM), M - m0));
-  const uint32_t sb = rows * K, sbulk = sb & ~15u;
-  const uint32_t vb = vpre ? rows * N * 4 : 0u, vbulk = vb & ~15u;
-  const uint8_t* sg = reinterpret_cast<const uint8_t*>(S + m0 * K);
-  const uint8_t* vg = reinterpret_cast<const uint8_t*>(V + m0 * N);
-  mbar_expect_tx(bar, sbulk + vbulk);
-  if (sbulk) bulk_g2s(st, sg, sbulk, bar);
-  if (vbulk) bulk_g2s(st + s_bytes, vg, vbulk, bar);
-  for (uint32_t b = sbulk; b < sb; ++b) st[b] = sg[b];
-  for (uint32_t b = vbulk; b < vb; ++b) st[s_bytes + b] = vg[b];
+  const uint32_t rows = tile_rows(M, tile);
+  issue_spans(bar,
+              Span{st, reinterpret_cast<const uint8_t*>(S + m0 * K), rows * K},
+              Span{st + s_bytes, reinterpret_cast<const uint8_t*>(V + m0 * N),
+                   vpre ? rows * N * 4 : 0u});
 }
 
 // Block (x, y) walks M tiles x, x + gridDim.x, ... for channels
@@ -201,87 +157,41 @@ lif_gemm_tc_kernel(const int8_t* __restrict__ S, const int8_t* __restrict__ W,
                    int32_t* __restrict__ S_OUT, int M, int K, int N, Epilogue e,
                    int stages) {
   extern __shared__ __align__(128) uint8_t smem[];
-  const TcLayout lay(K, N);
+  const TcLayout lay(K, N, B1_SLACK);
+  const int stage_bytes = lay.s_bytes + lay.v_bytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  uint8_t* wsm = smem + 128;
+  uint8_t* wsm = smem + TC_BARRIER_BYTES;
   uint8_t* ring = wsm + lay.w_bytes;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.y * TC_NB, nb = min(TC_NB, N - n0);
+  const int n0 = blockIdx.y * TC_NB;
   const bool vpre = N <= TC_NB;
-  const int k_pad = round_up(K, 32);
   const int tiles = (M + TC_BM - 1) / TC_BM;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
     for (int s = 0; s < stages; ++s) {
       const int tile = blockIdx.x + s * gridDim.x;
       if (tile < tiles)
-        issue_tile(S, V, M, K, N, vpre, tile, ring + s * lay.stage_bytes,
+        issue_tile(S, V, M, K, N, vpre, tile, ring + s * stage_bytes,
                    lay.s_bytes, &full[s]);
     }
   }
-  // The weight slab, while the first tiles are in flight: wsm[n * w_stride
-  // + k] = W[k, n0 + n], zero past K and past the slab's channels.
-  constexpr int NP = NT * 8;
-  const int wtotal = k_pad * NP;
-  for (int base = threadIdx.x; base < wtotal; base += TC_THREADS * 8) {
-    int8_t val[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int idx = base + u * TC_THREADS, k = idx / NP, n = idx % NP;
-      val[u] = (idx < wtotal && k < K && n < nb) ? W[int64_t(k) * N + n0 + n]
-                                                  : int8_t(0);
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int idx = base + u * TC_THREADS;
-      if (idx < wtotal) wsm[(idx % NP) * lay.w_stride + idx / NP] = uint8_t(val[u]);
-    }
-  }
-  // The thresholds of this thread's columns n0 + 8j + 2tig + c.
+  // The weight slab, while the first tiles are in flight.
+  load_weight_slab<NT>(W, K, N, n0, wsm, lay.w_stride);
   int thr[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int n = n0 + j * 8 + tig * 2 + c;
-      thr[j][c] = THR == nullptr ? thr_scalar : (n < N ? THR[n] : 0);
-    }
+  load_thresholds<NT>(THR, thr_scalar, N, n0, thr);
   __syncthreads();
 
   const int r0 = warp * 16;  // this warp's rows of every tile
   for (int it = 0, tile = blockIdx.x; tile < tiles; ++it, tile += gridDim.x) {
     const int s = it % stages;
     mbar_wait(&full[s], (it / stages) & 1);
-    const uint8_t* st = ring + s * lay.stage_bytes;
+    const uint8_t* st = ring + s * stage_bytes;
 
     int acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0;
-    for (int k0 = 0; k0 < k_pad; k0 += 32) {
-      uint32_t a[4];
-      if constexpr (LDSM) {
-        ldmatrix_x4(a, st + (r0 + (lane & 15)) * K + k0 + (lane >> 4) * 16);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const uint8_t* p =
-              st + (r0 + g + (q & 1) * 8) * K + k0 + (q >> 1) * 16 + tig * 4;
-          a[q] = uint32_t(p[0]) | uint32_t(p[1]) << 8 | uint32_t(p[2]) << 16 |
-                 uint32_t(p[3]) << 24;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const uint8_t* wp = wsm + (j * 8 + g) * lay.w_stride + k0 + tig * 4;
-        mma_s8(acc[j], a, *reinterpret_cast<const uint32_t*>(wp),
-               *reinterpret_cast<const uint32_t*>(wp + 16));
-      }
-    }
+    tile_mma<NT, LDSM>(st, K, wsm, lay.w_stride, acc);
 
     // The neuron program on the fragment: rows g and g + 8 of the warp's
     // 16, columns 8j + 2tig and 8j + 2tig + 1.
@@ -322,8 +232,8 @@ lif_gemm_tc_kernel(const int8_t* __restrict__ S, const int8_t* __restrict__ W,
     if (threadIdx.x == 0) {
       const int next = tile + stages * gridDim.x;
       if (next < tiles) {
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        issue_tile(S, V, M, K, N, vpre, next, ring + s * lay.stage_bytes,
+        fence_proxy_async();
+        issue_tile(S, V, M, K, N, vpre, next, ring + s * stage_bytes,
                    lay.s_bytes, &full[s]);
       }
     }
@@ -339,11 +249,179 @@ TcKernel tc_kernel(bool ldsm) {
   return ldsm ? lif_gemm_tc_kernel<NT, true> : lif_gemm_tc_kernel<NT, false>;
 }
 
+// ---------------------------------------------------------------------------
+// B2 on the tensor-core ring (see the header).
+// ---------------------------------------------------------------------------
+// Thread 0: start item q of this block, the spike tile of M tile
+// blockIdx.x + (q / T) * gridDim.x at timestep q % T, into stage q % stages
+// (nothing past the last tile).  The copy starts at the 16-byte boundary at
+// or below the tile's first byte; tblk_head gives the offset.
+__device__ __forceinline__ const uint8_t* tblk_tile(const int8_t* S, int M,
+                                                    int K, int tile, int t) {
+  return reinterpret_cast<const uint8_t*>(S) + int64_t(t) * M * K +
+         int64_t(tile) * TC_BM * K;
+}
+
+__device__ __forceinline__ uint32_t tblk_head(const uint8_t* p) {
+  return uint32_t(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+__device__ __forceinline__ void tblk_issue(const int8_t* S, int T, int M, int K,
+                                           int tiles, int q, int stages,
+                                           uint8_t* ring, int s_bytes,
+                                           uint64_t* full) {
+  const int i = q / T, t = q - i * T;
+  const int tile = blockIdx.x + i * gridDim.x;
+  if (tile >= tiles) return;
+  const uint8_t* src = tblk_tile(S, M, K, tile, t);
+  const uint32_t head = tblk_head(src);
+  uint32_t bytes = head + tile_rows(M, tile) * K;
+  const uint32_t up = (bytes + 15) & ~15u;  // past the tile, within the stack
+  if (src - head + up <= tblk_tile(S, M, K, 0, T)) bytes = up;
+  const int s = q % stages;
+  issue_spans(&full[s], Span{ring + s * s_bytes, src - head, bytes},
+              Span{nullptr, nullptr, 0u});
+}
+
+template <int NT, bool LDSM>
+__global__ void __launch_bounds__(TC_THREADS)
+lif_gemm_tblk_tc_kernel(const int8_t* __restrict__ S,
+                        const int8_t* __restrict__ W,
+                        const int32_t* __restrict__ V,
+                        const int32_t* __restrict__ THR, int thr_scalar,
+                        int32_t* __restrict__ V_OUT,
+                        int32_t* __restrict__ S_OUT, int T, int M, int K, int N,
+                        Epilogue e, int stages) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const TcLayout lay(K, N, B2_SLACK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* vbar = reinterpret_cast<uint64_t*>(smem + 64);
+  uint8_t* wsm = smem + TC_BARRIER_BYTES;
+  uint8_t* vsm = wsm + lay.w_bytes;
+  uint8_t* ring = vsm + lay.v_bytes;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.y * TC_NB;
+  const bool vpre = N <= TC_NB;
+  const int tiles = (M + TC_BM - 1) / TC_BM;
+  const int64_t plane_v = int64_t(M) * N;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    mbar_init(vbar, 1);
+    mbar_init_fence();
+    const int tile = blockIdx.x;
+    if (vpre && tile < tiles)
+      issue_spans(vbar, Span{vsm, reinterpret_cast<const uint8_t*>(
+                                     V + int64_t(tile) * TC_BM * N),
+                             tile_rows(M, tile) * N * 4},
+                  Span{nullptr, nullptr, 0u});
+    for (int q = 0; q < stages; ++q)
+      tblk_issue(S, T, M, K, tiles, q, stages, ring, lay.s_bytes, full);
+  }
+  load_weight_slab<NT>(W, K, N, n0, wsm, lay.w_stride);
+  int thr[NT][2];
+  load_thresholds<NT>(THR, thr_scalar, N, n0, thr);
+  __syncthreads();
+
+  const int r0 = warp * 16;
+  int q = 0;  // the block's item: (its i-th tile, t) is item i*T + t
+  for (int i = 0, tile = blockIdx.x; tile < tiles; ++i, tile += gridDim.x) {
+    const int64_t m0 = int64_t(tile) * TC_BM;
+    // This tile's Vmem, in the accumulator-fragment layout.
+    int vr[NT][4];
+    if (vpre) mbar_wait(vbar, i & 1);
+    const int32_t* vsrc = vpre ? reinterpret_cast<const int32_t*>(vsm) : V + m0 * N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      const bool row = m0 + r < M;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + j * 8 + tig * 2;
+        if (row && (N & 1) == 0 && n < N) {
+          const int2 v2 = *reinterpret_cast<const int2*>(vsrc + r * N + n);
+          vr[j][2 * h] = v2.x;
+          vr[j][2 * h + 1] = v2.y;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            vr[j][2 * h + c] = (row && n + c < N) ? vsrc[r * N + n + c] : 0;
+        }
+      }
+    }
+
+    for (int t = 0; t < T; ++t, ++q) {
+      const int s = q % stages;
+      mbar_wait(&full[s], (q / stages) & 1);
+      const uint8_t* src = tblk_tile(S, M, K, tile, t);
+      int acc[NT][4];
+      tile_mma<NT, LDSM>(ring + s * lay.s_bytes + tblk_head(src), K, wsm,
+                         lay.w_stride, acc);
+
+      __syncthreads();  // every warp is done with stage s (and, t = 0, vsm)
+      if (threadIdx.x == 0) {
+        fence_proxy_async();
+        tblk_issue(S, T, M, K, tiles, q + stages, stages, ring, lay.s_bytes, full);
+        const int next = tile + gridDim.x;
+        if (t == 0 && vpre && next < tiles)
+          issue_spans(vbar, Span{vsm, reinterpret_cast<const uint8_t*>(
+                                         V + int64_t(next) * TC_BM * N),
+                                 tile_rows(M, next) * N * 4},
+                      Span{nullptr, nullptr, 0u});
+      }
+
+      // The neuron program on the fragment, Vmem carried in vr.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t m = m0 + r0 + g + 8 * h;
+        if (m >= M) continue;
+        int32_t* vo = V_OUT + t * plane_v + m * N;
+        int32_t* so = S_OUT + t * plane_v + m * N;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int n = n0 + j * 8 + tig * 2;
+          if (n >= N) continue;
+          int sp[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            vr[j][2 * h + c] =
+                neuron(acc[j][2 * h + c], vr[j][2 * h + c], thr[j][c], e, sp[c]);
+          if ((N & 1) == 0) {  // n + 1 < N, and 8-byte aligned
+            *reinterpret_cast<int2*>(vo + n) =
+                make_int2(vr[j][2 * h], vr[j][2 * h + 1]);
+            *reinterpret_cast<int2*>(so + n) = make_int2(sp[0], sp[1]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              if (n + c < N) {
+                vo[n + c] = vr[j][2 * h + c];
+                so[n + c] = sp[c];
+              }
+          }
+        }
+      }
+    }
+  }
+}
+
+using TblkKernel = void (*)(const int8_t*, const int8_t*, const int32_t*,
+                            const int32_t*, int, int32_t*, int32_t*, int, int,
+                            int, int, Epilogue, int);
+
+template <int NT>
+TblkKernel tblk_kernel(bool ldsm) {
+  return ldsm ? lif_gemm_tblk_tc_kernel<NT, true>
+              : lif_gemm_tblk_tc_kernel<NT, false>;
+}
+
+// B2's tile loop for a fan-in beyond the ring (see the header).  THR null:
+// the scalar thr_scalar.
 __global__ void __launch_bounds__(THREADS)
 fused_lif_gemm_int_tblk_kernel(const int8_t* __restrict__ S,
                                const int8_t* __restrict__ W,
                                const int32_t* __restrict__ V,
-                               const int32_t* __restrict__ THR,
+                               const int32_t* __restrict__ THR, int thr_scalar,
                                int32_t* __restrict__ V_OUT,
                                int32_t* __restrict__ S_OUT, int T, int M,
                                int K, int N, int k_pad, Epilogue e,
@@ -367,7 +445,7 @@ fused_lif_gemm_int_tblk_kernel(const int8_t* __restrict__ S,
     const int64_t m = m0 + warp + i * WARPS;
     v[i] = (m < M && n < N) ? V[m * N + n] : 0;
   }
-  const int thr = n < N ? THR[n] : 0;
+  const int thr = n < N ? (THR == nullptr ? thr_scalar : THR[n]) : 0;
   __syncthreads();  // w_all complete
 
   const int64_t plane_s = int64_t(M) * K, plane_v = int64_t(M) * N;
@@ -574,7 +652,7 @@ fused_lif_gemm_f32_kernel(const float* __restrict__ S,
 // Dynamic shared memory B1 needs for fan-in K, N channels and `stages`
 // ring stages (the wrapper's plan mirrors it and checks it against this).
 extern "C" int spidr_fused_lif_gemm_int_smem(int K, int N, int stages) {
-  return TcLayout(K, N).total(stages);
+  return tc_smem(K, N, stages);
 }
 
 // thr: (N,) int32, or null for the scalar thr_scalar.  grid_x blocks walk
@@ -586,7 +664,7 @@ extern "C" int spidr_fused_lif_gemm_int(const void* s, const void* w,
                                         int leak_shift, int soft_reset,
                                         int v_min, int v_max, int grid_x,
                                         int stages, void* stream) {
-  const int smem = TcLayout(K, N).total(stages);
+  const int smem = tc_smem(K, N, stages);
   if (M <= 0 || K <= 0 || N <= 0 || grid_x <= 0 || stages < 2 ||
       stages > TC_MAX_STAGES || smem > TC_SMEM_MAX ||
       (reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
@@ -597,13 +675,8 @@ extern "C" int spidr_fused_lif_gemm_int(const void* s, const void* w,
                                tc_kernel<3>(ldsm), tc_kernel<4>(ldsm)};
   const TcKernel kern = kernels[nt - 1];
   static bool smem_set[8] = {};  // above 48 KB only after opting in
-  bool& set = smem_set[2 * (nt - 1) + ldsm];
-  if (!set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_MAX);
-    if (err != cudaSuccess) return int(err);
-    set = true;
-  }
+  const cudaError_t err = allow_smem(kern, smem_set[2 * (nt - 1) + ldsm]);
+  if (err != cudaSuccess) return int(err);
   const Epilogue e{leak_shift, soft_reset, v_min, v_max};
   kern<<<dim3(grid_x, (N + TC_NB - 1) / TC_NB), TC_THREADS, smem,
          static_cast<cudaStream_t>(stream)>>>(
@@ -614,25 +687,59 @@ extern "C" int spidr_fused_lif_gemm_int(const void* s, const void* w,
   return int(cudaGetLastError());
 }
 
-// Dynamic shared memory the T_blk kernel needs for fan-in K (the weight
-// slice); the wrapper checks it against the card's limit before launching.
-extern "C" int spidr_fused_lif_gemm_int_tblk_smem(int K) {
+// Dynamic shared memory of B2's ring kernel for fan-in K, N channels and
+// `stages` stages, and of its tile loop for fan-in K (the weight slice; the
+// kernel adds a 4 KB static spike tile).  The wrapper's plan mirrors both.
+extern "C" int spidr_fused_lif_gemm_int_tblk_smem(int K, int N, int stages) {
+  return tblk_smem(K, N, stages);
+}
+
+extern "C" int spidr_fused_lif_gemm_int_tblk_tile_smem(int K) {
   const int k_pad = (K + BK - 1) / BK * BK;
   return BN * (k_pad / 4 + 4) * int(sizeof(int32_t));
 }
 
+// route 1: the ring kernel on grid_x blocks per slab with `stages` stages
+// (s and v 16-byte aligned); route 0: the tile loop (grid_x, stages
+// unused).  thr: (N,) int32, or null for the scalar thr_scalar.
 extern "C" int spidr_fused_lif_gemm_int_tblk(const void* s, const void* w,
                                              const void* v, const void* thr,
-                                             void* v_out, void* s_out, int T,
-                                             int M, int K, int N,
-                                             int leak_shift, int soft_reset,
-                                             int v_min, int v_max,
-                                             int skip_empty, void* stream) {
-  if (T <= 0 || M <= 0 || K <= 0 || N <= 0) return int(cudaErrorInvalidValue);
+                                             int thr_scalar, void* v_out,
+                                             void* s_out, int T, int M, int K,
+                                             int N, int leak_shift,
+                                             int soft_reset, int v_min,
+                                             int v_max, int skip_empty,
+                                             int route, int grid_x, int stages,
+                                             void* stream) {
+  if (T <= 0 || M <= 0 || K <= 0 || N <= 0 || route < 0 || route > 1)
+    return int(cudaErrorInvalidValue);
   const Epilogue e{leak_shift, soft_reset, v_min, v_max};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    const int smem = tblk_smem(K, N, stages);
+    if (grid_x <= 0 || stages < 2 || stages > TBLK_MAX_STAGES ||
+        smem > TC_SMEM_MAX ||
+        (reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+      return int(cudaErrorInvalidValue);
+    const int nt = N >= TC_NB ? 4 : (N + 7) / 8;
+    const bool ldsm = K % 16 == 0;
+    const TblkKernel kernels[4] = {tblk_kernel<1>(ldsm), tblk_kernel<2>(ldsm),
+                                   tblk_kernel<3>(ldsm), tblk_kernel<4>(ldsm)};
+    const TblkKernel kern = kernels[nt - 1];
+    static bool smem_set[8] = {};
+    const cudaError_t err = allow_smem(kern, smem_set[2 * (nt - 1) + ldsm]);
+    if (err != cudaSuccess) return int(err);
+    kern<<<dim3(grid_x, (N + TC_NB - 1) / TC_NB), TC_THREADS, smem, st>>>(
+        static_cast<const int8_t*>(s), static_cast<const int8_t*>(w),
+        static_cast<const int32_t*>(v), static_cast<const int32_t*>(thr),
+        thr_scalar, static_cast<int32_t*>(v_out), static_cast<int32_t*>(s_out),
+        T, M, K, N, e, stages);
+    return int(cudaGetLastError());
+  }
   const int k_pad = (K + BK - 1) / BK * BK;
-  const int smem = spidr_fused_lif_gemm_int_tblk_smem(K);
-  if (smem > 48 * 1024) {
+  const int smem = spidr_fused_lif_gemm_int_tblk_tile_smem(K);
+  // Static and dynamic shared memory together above 48 KB need the opt-in.
+  if (smem + BM * BK > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fused_lif_gemm_int_tblk_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -640,12 +747,11 @@ extern "C" int spidr_fused_lif_gemm_int_tblk(const void* s, const void* w,
   }
   const int vec = spikes_vectorizable(s, K);
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  fused_lif_gemm_int_tblk_kernel<<<grid, THREADS, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  fused_lif_gemm_int_tblk_kernel<<<grid, THREADS, smem, st>>>(
       static_cast<const int8_t*>(s), static_cast<const int8_t*>(w),
       static_cast<const int32_t*>(v), static_cast<const int32_t*>(thr),
-      static_cast<int32_t*>(v_out), static_cast<int32_t*>(s_out), T, M, K, N,
-      k_pad, e, skip_empty, vec);
+      thr_scalar, static_cast<int32_t*>(v_out), static_cast<int32_t*>(s_out), T,
+      M, K, N, k_pad, e, skip_empty, vec);
   return int(cudaGetLastError());
 }
 

@@ -21,11 +21,16 @@ counter (``kernels.LAUNCHES``), so a run can show that its main path went
 through the kernels.
 
 ``block`` is accepted for signature parity with the reference and is not
-used: the CUDA tiles are fixed.  ``fused_lif_gemm_int`` runs on the int8
-tensor cores over a persistent grid sized by :func:`tc_plan`; it accepts
-``skip_empty`` and ignores it (the result is the same either way).  The
-other two kernels skip empty spike tiles by a block-wide vote inside the
-kernel, so the tblk wrapper needs no bitmap prologue.
+used: the CUDA tiles are fixed.  ``fused_lif_gemm_int`` and
+``fused_lif_gemm_int_tblk`` run on the int8 tensor cores over a persistent
+grid with a ring of bulk-copied spike tiles (``csrc/tc_ring.cuh``), sized
+by :func:`tc_plan` and :func:`tblk_plan`; a scalar threshold reaches both
+as a kernel argument.  On the ring ``skip_empty`` is accepted and has no
+effect (the result is the same either way).  A T_blk fan-in too large for
+the ring's two stages takes the first design's tile loop, which skips
+empty spike tiles by a block-wide vote; the plan picks the route by shape,
+so the tblk wrapper needs no bitmap prologue.  The float kernel skips by
+the same vote.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import numbers
 import numpy as np
 import torch
 
+from . import _ring
 from ._build import (LAUNCHES, bind, check, count_launch, kernel_device, raise_on,
                      sm_count)
 from .ref import (
@@ -51,6 +57,8 @@ __all__ = [
     "fused_lif_gemm",
     "fused_lif_gemm_int",
     "fused_lif_gemm_int_tblk",
+    "tblk_plan",
+    "tblk_smem",
     "tc_plan",
     "tc_smem",
 ]
@@ -61,59 +69,80 @@ _SIGNATURES = {
     # grid_x, stages, stream
     "spidr_fused_lif_gemm_int": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 9 + [_P],
     "spidr_fused_lif_gemm_int_smem": [_I] * 3,
-    # s, w, v, thr, v_out, s_out, T, M, K, N, leak, soft, vmin, vmax, skip, stream
-    "spidr_fused_lif_gemm_int_tblk": [_P] * 6 + [_I] * 9 + [_P],
-    "spidr_fused_lif_gemm_int_tblk_smem": [_I],
+    # s, w, v, thr, thr_scalar, v_out, s_out, T, M, K, N, leak, soft, vmin,
+    # vmax, skip, route, grid_x, stages, stream
+    "spidr_fused_lif_gemm_int_tblk": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 12 + [_P],
+    "spidr_fused_lif_gemm_int_tblk_smem": [_I] * 3,
+    "spidr_fused_lif_gemm_int_tblk_tile_smem": [_I],
     # s, w, v, v_out, s_out, M, K, N, thr, leak, soft, skip, stream
     "spidr_fused_lif_gemm_f32": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _I, _P],
 }
-_SMEM_LIMIT = 227 * 1024  # opt-in shared memory per block on sm_90
-_SMEM_PER_SM = 228 * 1024  # shared memory per SM, of which 1 KB per block
-# B1's kernel (csrc/fused_lif_gemm.cu lif_gemm_tc_kernel): 64-row M tiles,
-# slabs of 32 channels, a ring of 2 to 4 stages.
-_TC_BM, _TC_NB, _TC_MAX_STAGES = 64, 32, 4
-
-
-def _round_up(x: int, a: int) -> int:
-    return -(-x // a) * a
+# B1's ring (csrc/fused_lif_gemm.cu lif_gemm_tc_kernel): 2 to 4 stages,
+# each the tile's spikes (32 bytes of slack) and, when one slab covers N,
+# its Vmem.  B2's (lif_gemm_tblk_tc_kernel): 2 to 8 stages of spikes only
+# (48 bytes of slack: a plane may start off 16 bytes), beside one Vmem
+# buffer.  B2's tile loop (fused_lif_gemm_int_tblk_kernel) holds the
+# (K padded to 64, 32) weight slice beside a 4 KB spike tile.
+_TC_MAX_STAGES, _TC_SLACK = 4, 32
+_TBLK_MAX_STAGES, _TBLK_SLACK = 8, 48
+_TILE_STATIC = 4096
 
 
 def tc_smem(k: int, n: int, stages: int) -> int:
-    """Shared memory of B1's kernel, laid out as ``TcLayout`` in the CUDA
-    source: barriers, the weight slab, then ``stages`` x (spike tile and,
-    when one slab covers N, the Vmem tile)."""
-    w_bytes = _round_up(_TC_NB * (_round_up(k, 32) + 16), 128)
-    stage = _round_up(_TC_BM * k + 32, 128)
-    if n <= _TC_NB:
-        stage += _round_up(_TC_BM * n * 4, 128)
-    return 128 + w_bytes + stages * stage
+    """Shared memory of B1's kernel: barriers, the weight slab, then
+    ``stages`` x (spike tile and, when one slab covers N, the Vmem tile)."""
+    return (_ring.BARRIER_BYTES + _ring.weight_bytes(k)
+            + stages * (_ring.spike_bytes(k, _TC_SLACK) + _ring.tile_bytes(n)))
 
 
 @functools.lru_cache(maxsize=256)  # per launch, from a handful of layer shapes
 def tc_plan(m: int, k: int, n: int, sms: int) -> tuple:
-    """``(grid_x, stages)`` of B1 for ``(m, k) x (k, n)`` on ``sms`` SMs.
-
-    Of 4, 2 or 1 blocks per SM, each with as many ring stages (2 to 4) as
-    its share of shared memory holds, the choice with the most tiles in
-    flight per SM (blocks x (stages - 1)); ``grid_x`` blocks per slab of 32
-    channels walk the 64-row M tiles.  A fan-in too large for 2 stages on
-    one block raises.
-    """
-    best = None
-    for per_sm in (4, 2, 1):
-        budget = min(_SMEM_LIMIT, _SMEM_PER_SM // per_sm - 1024)
-        stages = _TC_MAX_STAGES
-        while stages >= 2 and tc_smem(k, n, stages) > budget:
-            stages -= 1
-        if stages >= 2 and (best is None or per_sm * (stages - 1) > best[0]):
-            best = (per_sm * (stages - 1), per_sm, stages)
-    if best is None:
+    """``(grid_x, stages)`` of B1 for ``(m, k) x (k, n)`` on ``sms`` SMs
+    (``_ring.ring_grid``).  A fan-in too large for 2 stages on one block
+    raises."""
+    fixed = _ring.BARRIER_BYTES + _ring.weight_bytes(k)
+    stage = _ring.spike_bytes(k, _TC_SLACK) + _ring.tile_bytes(n)
+    plan = _ring.ring_grid(m, k, n, fixed, stage, _TC_MAX_STAGES, sms)
+    if plan is None:
         raise ValueError(f"fused_lif_gemm_int: fan-in K={k} needs "
                          f"{tc_smem(k, n, 2)} bytes of shared memory for two "
-                         f"stages, more than a Hopper block's {_SMEM_LIMIT}")
-    _, per_sm, stages = best
-    tiles = -(-m // _TC_BM)
-    return max(1, min(tiles, sms * per_sm // -(-n // _TC_NB))), stages
+                         f"stages, more than a Hopper block's {_ring.SMEM_LIMIT}")
+    return plan
+
+
+def tblk_smem(k: int, n: int, stages: int) -> int:
+    """Shared memory of B2's ring kernel: barriers, the weight slab, the
+    Vmem buffer (one slab covers N), then ``stages`` spike tiles."""
+    return (_ring.BARRIER_BYTES + _ring.weight_bytes(k) + _ring.tile_bytes(n)
+            + stages * _ring.spike_bytes(k, _TBLK_SLACK))
+
+
+def tblk_tile_smem(k: int) -> int:
+    """Shared memory of B2's tile loop: the (K padded to 64, 32) weight
+    slice as words, 4 + K/4 per channel, beside the 4 KB spike tile."""
+    return _ring.NB * (_ring.round_up(k, 64) // 4 + 4) * 4 + _TILE_STATIC
+
+
+@functools.lru_cache(maxsize=256)
+def tblk_plan(m: int, k: int, n: int, sms: int) -> _ring.Plan:
+    """B2's route for ``(T, m, k) x (k, n)`` on ``sms`` SMs.
+
+    The ring (``_ring.ring_grid``, 2 to 8 stages) wherever two of its
+    stages fit beside the weight slab and the Vmem buffer; the tile loop
+    for a larger fan-in, up to its own limit (K ~7,000 at N = 32), above
+    which it raises.  T does not enter: the ring holds one spike tile per
+    stage whatever T is.
+    """
+    fixed = _ring.BARRIER_BYTES + _ring.weight_bytes(k) + _ring.tile_bytes(n)
+    ring = _ring.ring_grid(m, k, n, fixed, _ring.spike_bytes(k, _TBLK_SLACK),
+                           _TBLK_MAX_STAGES, sms)
+    if ring is not None:
+        return _ring.Plan("ring", *ring)
+    if tblk_tile_smem(k) > _ring.SMEM_LIMIT:
+        raise ValueError(
+            f"fused_lif_gemm_int_tblk: fan-in K={k} needs {tblk_tile_smem(k)} "
+            f"bytes of shared memory, more than a Hopper block's {_ring.SMEM_LIMIT}")
+    return _ring.Plan("tile", -(-m // _ring.BM), 0)
 
 
 def _fn(name: str):
@@ -121,11 +150,12 @@ def _fn(name: str):
     return bind("fused_lif_gemm", _SIGNATURES)[name]
 
 
-def _threshold_vector(threshold, n: int, device) -> torch.Tensor:
-    """Scalar or ``(N,)`` threshold -> contiguous ``(N,)`` int32 on device."""
+def _threshold_args(threshold, n: int, device) -> tuple:
+    """``(thr, thr_scalar)``: an int is a kernel argument (no fill); a
+    tensor becomes a contiguous ``(N,)`` int32 vector on the device."""
     if isinstance(threshold, (int, np.integer)):
-        return torch.full((n,), int(threshold), dtype=torch.int32, device=device)
-    return _threshold_tensor(threshold, n, device)
+        return None, int(threshold)
+    return _threshold_tensor(threshold, n, device), 0
 
 
 def _threshold_tensor(threshold, n: int, device) -> torch.Tensor:
@@ -136,12 +166,6 @@ def _threshold_tensor(threshold, n: int, device) -> torch.Tensor:
     threshold = threshold.contiguous()
     check("threshold", threshold, torch.int32, (n,), device)
     return threshold
-
-
-def _aligned16(x: torch.Tensor) -> torch.Tensor:
-    """``x``, or a copy of it when its data does not start on 16 bytes (the
-    bulk copies of B1 need that)."""
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _vmem_range(vmem_bits: int):
@@ -177,10 +201,7 @@ def fused_lif_gemm_int(
     check("spikes", spikes, torch.int8, (m, k), dev)
     check("weights", weights, torch.int8, (k, n), dev)
     check("v", v, torch.int32, (m, n), dev)
-    if isinstance(threshold, (int, np.integer)):  # a kernel argument: no fill
-        thr, thr_scalar = None, int(threshold)
-    else:
-        thr, thr_scalar = _threshold_tensor(threshold, n, dev), 0
+    thr, thr_scalar = _threshold_args(threshold, n, dev)
     v_out = torch.empty((m, n), dtype=torch.int32, device=dev)
     s_out = torch.empty((m, n), dtype=torch.int32, device=dev)
     if k == 0:
@@ -188,7 +209,7 @@ def fused_lif_gemm_int(
     if m == 0 or n == 0:
         return v_out, s_out
     grid_x, stages = tc_plan(m, k, n, sm_count(dev))
-    spikes, v = _aligned16(spikes), _aligned16(v)
+    spikes, v = _ring.aligned16(spikes), _ring.aligned16(v)
     v_min, v_max = _vmem_range(vmem_bits)
     with torch.cuda.device(dev):
         err = _fn("spidr_fused_lif_gemm_int")(
@@ -227,26 +248,23 @@ def fused_lif_gemm_int_tblk(
     check("spikes", spikes, torch.int8, (t, m, k), dev)
     check("weights", weights, torch.int8, (k, n), dev)
     check("v", v, torch.int32, (m, n), dev)
-    thr = _threshold_vector(threshold, n, dev)
+    thr, thr_scalar = _threshold_args(threshold, n, dev)
     v_out = torch.empty((t, m, n), dtype=torch.int32, device=dev)
     s_out = torch.empty((t, m, n), dtype=torch.int32, device=dev)
     if k == 0:
         raise ValueError("fused_lif_gemm_int_tblk needs a fan-in K > 0")
     if t == 0 or m == 0 or n == 0:
         return v_out, s_out
-    # The kernel keeps the block's (K, 32) weight slice in shared memory
-    # beside a 4 KB spike tile; Hopper gives a block at most 227 KB.
-    smem = _fn("spidr_fused_lif_gemm_int_tblk_smem")(k) + 4096
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"fused_lif_gemm_int_tblk: fan-in K={k} needs {smem} bytes of "
-            f"shared memory, more than a Hopper block's {_SMEM_LIMIT}")
+    plan = tblk_plan(m, k, n, sm_count(dev))
+    spikes, v = _ring.aligned16(spikes), _ring.aligned16(v)
     v_min, v_max = _vmem_range(vmem_bits)
     with torch.cuda.device(dev):
         err = _fn("spidr_fused_lif_gemm_int_tblk")(
-            spikes.data_ptr(), weights.data_ptr(), v.data_ptr(), thr.data_ptr(),
-            v_out.data_ptr(), s_out.data_ptr(), t, m, k, n, int(leak_shift),
-            int(bool(soft_reset)), v_min, v_max, int(bool(skip_empty)), _stream(dev))
+            spikes.data_ptr(), weights.data_ptr(), v.data_ptr(),
+            None if thr is None else thr.data_ptr(), thr_scalar, v_out.data_ptr(),
+            s_out.data_ptr(), t, m, k, n, int(leak_shift), int(bool(soft_reset)),
+            v_min, v_max, int(bool(skip_empty)), int(plan.route == "ring"),
+            plan.grid_x, plan.stages, _stream(dev))
     raise_on(err, "fused_lif_gemm_int_tblk")
     count_launch("fused_lif_gemm_int_tblk")
     return v_out, s_out

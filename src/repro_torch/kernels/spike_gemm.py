@@ -6,39 +6,90 @@ binary-activation integer GEMM, ``partial[m, n] = sum_k S[m, k] W[k, n]``
 Pallas ``spike_gemm``; its three skip settings, all bit-identical:
 
     skip_empty=False                    dense: every tile is multiplied
-    skip_empty=True, skip_mode="reduce" each staged spike tile is voted on
-                                        in the kernel (``__syncthreads_or``)
+    skip_empty=True, skip_mode="reduce" on the ring, as dense; in the tile
+                                        loop each staged tile is voted on
+                                        (``__syncthreads_or``)
     skip_empty=True, skip_mode="bitmap" a per-tile int32 bitmap, made here by
-                                        ``spike_tile_bitmap`` at the CUDA
-                                        tile (64 rows x 64 fan-in), tells the
-                                        kernel which tiles to load at all
+                                        ``spike_tile_bitmap`` at
+                                        :data:`CUDA_TILE`, tells the kernel
+                                        which tiles to load at all
 
-For CPU tensors the wrapper returns the plain version (``spike_gemm_ref``);
-for CUDA tensors it launches the kernel or raises.  ``block`` is accepted
-for signature parity and is not used: the CUDA tile is fixed.
+:func:`plan` picks the route by shape before launching: the tensor-core
+ring of ``csrc/tc_ring.cuh`` (a persistent grid, the weight slab resident,
+64-row spike tiles bulk-copied into up to 8 stages) wherever two of its
+stages fit in a block's shared memory, else the first design's tile loop,
+which takes any fan-in.  For CPU tensors the wrapper returns the plain
+version (``spike_gemm_ref``); for CUDA tensors it launches the kernel or
+raises.  ``block`` is accepted for signature parity and is not used: the
+CUDA tiles are fixed.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ._build import bind, check, count_launch, kernel_device, raise_on
+from . import _ring
+from ._build import bind, check, count_launch, kernel_device, raise_on, sm_count
 from .ref import DEFAULT_BLOCK, spike_gemm_ref, spike_tile_bitmap
 
-__all__ = ["CUDA_TILE", "SKIP_MODES", "spike_gemm"]
+__all__ = ["CUDA_TILE", "SKIP_MODES", "launch", "plan", "ring_smem", "spike_gemm"]
 
 SKIP_MODES = ("reduce", "bitmap")
 
-#: (bm, bn, bk) of ``csrc/spike_gemm.cu``: the tile the bitmap is made at.
-CUDA_TILE = (64, 32, 64)
+#: (bm, bn, bk) of the bitmap: the ring's 64-row M tile, its 32-channel
+#: slab and one mma's 32 fan-in bytes.  The ring skips a 64-row tile whose
+#: flags are all zero; the tile loop a (64, 64) tile whose two flags are.
+CUDA_TILE = (_ring.BM, _ring.NB, _ring.KSTEP)
+
+_MAX_STAGES, _SLACK = 8, 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # s, w, bitmap, out, M, K, N, skip_mode, stream
-    "spidr_spike_gemm": [_P] * 4 + [_I] * 4 + [_P],
+    # s, w, bitmap, out, M, K, N, skip_mode, route, grid_x, stages, bulk, stream
+    "spidr_spike_gemm": [_P] * 4 + [_I] * 8 + [_P],
+    "spidr_spike_gemm_smem": [_I] * 4,
 }
 _MODE = {False: 0, "reduce": 1, "bitmap": 2}
+
+
+def ring_smem(k: int, n: int, stages: int, store: str = "frag") -> int:
+    """Shared memory of the ring kernel: barriers, the weight slab, the
+    output tile (bulk store), then ``stages`` spike tiles."""
+    out = _ring.tile_bytes(n) if store == "bulk" else 0
+    return (_ring.BARRIER_BYTES + _ring.weight_bytes(k) + out
+            + stages * _ring.spike_bytes(k, _SLACK))
+
+
+def _ring_plan(m: int, k: int, n: int, sms: int, store: str):
+    return _ring.ring_grid(m, k, n, ring_smem(k, n, 0, store),
+                           _ring.spike_bytes(k, _SLACK), _MAX_STAGES, sms)
+
+
+@functools.lru_cache(maxsize=256)  # per launch, from a handful of layer shapes
+def plan(m: int, k: int, n: int, sms: int, store: str | None = None) -> _ring.Plan:
+    """The route of ``(m, k) x (k, n)`` on ``sms`` SMs: the ring
+    (``_ring.ring_grid``, 2 to 8 stages) wherever two stages fit, else the
+    tile loop, one block per (64, 32) output tile.
+
+    ``store`` is the ring's output path (``Plan.store``): "frag", 8-byte
+    fragment stores, or "bulk", the 64 x N tile staged in shared memory and
+    written by one bulk copy, which needs one slab to cover N.  None picks
+    the faster one on the H100 (``PERF.md``): "bulk" where each block walks
+    more than one tile (the store of one tile overlaps the next tile's
+    products), "frag" where each block has one tile (nothing to overlap the
+    extra barrier and the store with).
+    """
+    if n > _ring.NB:
+        store = "frag"
+    elif store is None:
+        frag, bulk = (_ring_plan(m, k, n, sms, s) for s in ("frag", "bulk"))
+        store = "bulk" if bulk is not None and -(-m // _ring.BM) > frag[0] else "frag"
+    ring = _ring_plan(m, k, n, sms, store)
+    if ring is None:
+        return _ring.Plan("tile", -(-m // _ring.BM), 0)
+    return _ring.Plan("ring", *ring, store)
 
 
 def spike_gemm(
@@ -57,6 +108,16 @@ def spike_gemm(
     dev = kernel_device("spike_gemm", spikes, weights)
     if dev is None:
         return spike_gemm_ref(spikes, weights)
+    m, k = spikes.shape
+    return launch(spikes, weights, plan(m, k, weights.shape[1], sm_count(dev)),
+                  skip_empty, skip_mode)
+
+
+def launch(spikes: torch.Tensor, weights: torch.Tensor, route: _ring.Plan,
+           skip_empty: bool = True, skip_mode: str = "reduce") -> torch.Tensor:
+    """Run the CUDA kernel with ``route`` (a :func:`plan`, or any plan valid
+    for the shape, so a measurement can set the store)."""
+    dev = kernel_device("spike_gemm", spikes, weights)
     if spikes.is_floating_point() or spikes.is_complex():
         raise TypeError(f"spikes must be an integer or bool tensor, got {spikes.dtype}")
     spikes = spikes.to(torch.int8)  # the reference casts spikes to int8 too
@@ -69,13 +130,15 @@ def spike_gemm(
         raise ValueError("spike_gemm needs a fan-in K > 0")
     if m == 0 or n == 0:
         return out
+    spikes = _ring.aligned16(spikes)
     mode = _MODE[skip_mode if skip_empty else False]
     bitmap = spike_tile_bitmap(spikes, CUDA_TILE) if mode == 2 else None
     with torch.cuda.device(dev):
         err = bind("spike_gemm", _SIGNATURES)["spidr_spike_gemm"](
             spikes.data_ptr(), weights.data_ptr(),
             None if bitmap is None else bitmap.data_ptr(), out.data_ptr(),
-            m, k, n, mode, torch.cuda.current_stream(dev).cuda_stream)
+            m, k, n, mode, int(route.route == "ring"), route.grid_x, route.stages,
+            int(route.store == "bulk"), torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "spike_gemm")
     count_launch("spike_gemm")
     return out

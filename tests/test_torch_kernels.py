@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_same, cuda_device, jax_ref  # noqa: F401
+from repro_torch.kernels import _ring
 from repro_torch.kernels import fused_lif_gemm as fk
 from repro_torch.kernels import ref
 
@@ -95,6 +96,28 @@ def test_fused_lif_gemm_int_tblk_matches_jax(jax_ref, case, t):
         assert_same(ss, st[i])
 
 
+# (m, k, n, t, block): T = 5, N = 2 and 33, and a fan-in beyond the ring's
+# reach (the tile-loop route on the card), each against the Pallas kernel.
+TBLK_EDGES = [(45, 288, 2, 5, (32, 128, 32)), (70, 70, 33, 5, (32, 128, 32)),
+              (40, 1500, 8, 5, (32, 128, 512)), (20, 1500, 33, 2, (32, 128, 512))]
+
+
+@pytest.mark.parametrize("case", TBLK_EDGES, ids=lambda c: "x".join(map(str, c[:4])))
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_fused_lif_gemm_int_tblk_edges_match_jax(jax_ref, case, per_channel):
+    m, k, n, t, block = case
+    s, w, v, thr = _inputs(m, k, n, 0.2, 7, per_channel, t=t, seed=5)
+    kw = dict(leak_shift=2, soft_reset=per_channel, vmem_bits=7)
+    vt, st = fk.fused_lif_gemm_int_tblk(torch.from_numpy(s), torch.from_numpy(w),
+                                        torch.from_numpy(v), _thr(thr, "torch"), **kw)
+    jnp = jax_ref.jnp
+    vj, sj = jax_ref.kernels.fused_lif_gemm_int_tblk(
+        jnp.asarray(s), jnp.asarray(w), jnp.asarray(v), _thr(thr, "jax", jnp),
+        interpret=True, block=block, **kw)
+    assert_same(vt, vj)
+    assert_same(st, sj)
+
+
 @pytest.mark.parametrize("shape,block", [((3, 100, 70), (32, 8, 16)),
                                          ((2, 64, 64), (64, 8, 32)),
                                          ((1, 5, 300), (128, 128, 128)),
@@ -142,6 +165,77 @@ def test_tc_plan_main_shapes():
 def test_tc_plan_rejects_large_fan_in():
     with pytest.raises(ValueError, match="fan-in K=1500"):
         fk.tc_plan(1000, 1500, 32, 132)
+
+
+# B2's plan: the main paths' shapes, ragged ones, and fan-ins on both sides
+# of the ring's reach.
+TBLK_PLAN_SHAPES = PLAN_SHAPES + [(4096, 2000, 32), (4096, 288, 33),
+                                  (70, 1393, 32), (70, 1394, 32), (64, 6000, 70)]
+
+
+@pytest.mark.parametrize("mkn", TBLK_PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("sms", [132, 8])
+def test_tblk_plan_geometry(mkn, sms):
+    """B2's launch geometry: on the ring, a persistent grid no larger than
+    the tiles or the card, 2-8 stages, shared memory within a block's share;
+    on the tile loop, one block per M tile and the slice within a block."""
+    m, k, n = mkn
+    plan = fk.tblk_plan(m, k, n, sms)
+    slabs, tiles = -(-n // 32), -(-m // 64)
+    if plan.route == "tile":
+        assert fk.tblk_smem(k, n, 2) > 227 * 1024  # the ring does not fit
+        assert plan.grid_x == tiles and fk.tblk_tile_smem(k) <= 227 * 1024
+        return
+    assert plan.route == "ring"
+    assert 1 <= plan.grid_x <= tiles and 2 <= plan.stages <= 8
+    assert plan.grid_x * slabs <= max(slabs, 4 * sms)
+    smem = fk.tblk_smem(k, n, plan.stages)
+    per_sm = -(-plan.grid_x * slabs // sms)
+    assert smem <= 227 * 1024 and per_sm * (smem + 1024) <= 228 * 1024
+
+
+def test_tblk_plan_main_shapes():
+    """Flow middle: 2 blocks per SM, 5 stages of 64 x 288 spikes (48 bytes
+    of slack: 18,560 each) beside the 9,728-byte weight slab and one 8 KB
+    Vmem buffer; T does not enter the plan."""
+    assert fk.tblk_plan(221184, 288, 32, 132) == ("ring", 264, 5, "frag")
+    assert fk.tblk_smem(288, 32, 5) == 128 + 9728 + 8192 + 5 * 18560
+    assert fk.tblk_plan(16384, 144, 16, 132) == ("ring", 256, 5, "frag")
+    assert fk.tblk_plan(221184, 288, 2, 132)[:3] == ("ring", 264, 5)
+    # Two slabs: Vmem comes from device memory, no Vmem buffer.
+    assert fk.tblk_smem(288, 33, 2) == 128 + 9728 + 2 * 18560
+    assert fk.tblk_tile_smem(2000) == 32 * (2048 // 4 + 4) * 4 + 4096
+
+
+@pytest.mark.parametrize("n", [2, 16, 32, 33])
+def test_tblk_plan_route_changes_where_two_stages_stop_fitting(n):
+    """The ring up to the last fan-in whose two stages fit, the tile loop
+    from the next one on, whatever M and the card."""
+    k_max = max(k for k in range(1, 3000) if fk.tblk_smem(k, n, 2) <= 227 * 1024)
+    assert fk.tblk_smem(k_max + 1, n, 2) > 227 * 1024
+    for m, sms in ((100, 132), (221184, 8)):
+        assert fk.tblk_plan(m, k_max, n, sms).route == "ring"
+        assert fk.tblk_plan(m, k_max + 1, n, sms).route == "tile"
+
+
+def test_tblk_plan_keeps_the_tile_loops_fan_in():
+    """No fan-in the first design took is refused: the tile loop up to its
+    own limit (~7,000), a clear error above it."""
+    k_top = max(k for k in range(1000, 8000, 64) if fk.tblk_tile_smem(k) <= 227 * 1024)
+    assert k_top >= 6900
+    assert fk.tblk_plan(64, k_top, 32, 132).route == "tile"
+    with pytest.raises(ValueError, match="fan-in K=8000"):
+        fk.tblk_plan(64, 8000, 32, 132)
+
+
+def test_ring_grid_is_the_shared_search():
+    """B1, B2 and B4 size their rings with one search (``_ring.ring_grid``):
+    B1's plan equals it with B1's own stage."""
+    k, n = 288, 32
+    fixed = 128 + _ring.weight_bytes(k)
+    stage = _ring.spike_bytes(k, 32) + _ring.tile_bytes(n)
+    assert fk.tc_plan(221184, k, n, 132) == _ring.ring_grid(221184, k, n, fixed, stage, 4, 132)
+    assert _ring.ring_grid(10, 5000, 32, fixed, 200000, 8, 132) is None
 
 
 def test_kernel_times_tool_needs_a_card():
@@ -214,6 +308,70 @@ def test_cuda_fused_int_thresholds_views_and_launches(cuda_device):
     view = fk.fused_lif_gemm_int(shifted, w_d, v_d, 5, **kw)
     torch.cuda.synchronize()
     assert fk.LAUNCHES["fused_lif_gemm_int"] == before + 3
+    for got in (scalar, vector, view):
+        for g, p in zip(got, want):
+            assert_same(g, p)
+
+
+# B2 on the card: ragged M, odd K, N from one n8 tile to three slabs, fan-ins
+# on both sides of the ring's reach at N = 32 (1,393 is its last), and the
+# tile loop where its shared memory crosses 48 KB (K 1,345-1,472, where it
+# needs the opt-in).
+TBLK_GPU_SHAPES = [(333, 145, 2), (200, 18, 16), (129, 288, 32), (65, 77, 33),
+                   (97, 64, 70), (70, 1393, 32), (70, 1394, 32), (130, 1500, 16),
+                   (64, 2000, 33)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", TBLK_GPU_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_tblk_matches_plain(cuda_device, mkn):
+    """B2 on either route against its plain version: T in {1, 3, 5}, scalar
+    and per-channel thresholds, hard and soft reset, skip_empty on and off."""
+    m, k, n = mkn
+    ring = fk.tblk_smem(k, n, 2) <= 227 * 1024
+    assert fk.tblk_plan(m, k, n, 132).route == ("ring" if ring else "tile")
+    for t in (1, 3, 5):
+        for per_channel, soft, leak in ((False, False, 3), (True, True, 0)):
+            s, w, v, thr = _inputs(m, k, n, 0.15, 7, per_channel, t=t, seed=t)
+            args = [torch.from_numpy(x) for x in (s, w, v)]
+            thr_t = _thr(thr, "torch")
+            kw = dict(leak_shift=leak, soft_reset=soft, vmem_bits=7)
+            plain = ref.fused_lif_gemm_int_tblk_ref(*args, thr_t, **kw)
+            thr_d = thr_t if isinstance(thr_t, int) else thr_t.to(cuda_device)
+            for skip in (True, False):
+                got = fk.fused_lif_gemm_int_tblk(*[x.to(cuda_device) for x in args],
+                                                 thr_d, skip_empty=skip, **kw)
+                torch.cuda.synchronize()
+                for g, p in zip(got, plain):
+                    assert g.is_cuda
+                    assert_same(g, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [144, 1500], ids=["ring", "tile"])
+def test_cuda_tblk_thresholds_views_and_launches(cuda_device, k):
+    """B2 on the card: a scalar threshold equals the same value per channel,
+    spikes and Vmem that start off 16-byte alignment give the same result,
+    and each call launches the kernel once."""
+    s, w, v, _ = _inputs(333, k, 16, 0.1, 7, False, t=3)
+    s_d, w_d, v_d = (torch.from_numpy(x).to(cuda_device) for x in (s, w, v))
+    kw = dict(leak_shift=3, soft_reset=False, vmem_bits=7)
+    want = ref.fused_lif_gemm_int_tblk_ref(*(torch.from_numpy(x) for x in (s, w, v)),
+                                           5, **kw)
+    before = fk.LAUNCHES["fused_lif_gemm_int_tblk"]
+    scalar = fk.fused_lif_gemm_int_tblk(s_d, w_d, v_d, 5, **kw)
+    vector = fk.fused_lif_gemm_int_tblk(s_d, w_d, v_d, torch.full(
+        (16,), 5, dtype=torch.int32, device=cuda_device), **kw)
+    flat = torch.zeros(s.size + 1, dtype=torch.int8, device=cuda_device)
+    s_view = flat[1:].view(s.shape)
+    s_view.copy_(s_d)
+    vflat = torch.zeros(v.size + 1, dtype=torch.int32, device=cuda_device)
+    v_view = vflat[1:].view(v.shape)
+    v_view.copy_(v_d)
+    assert s_view.data_ptr() % 16 != 0 and v_view.data_ptr() % 16 != 0
+    view = fk.fused_lif_gemm_int_tblk(s_view, w_d, v_view, 5, **kw)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fused_lif_gemm_int_tblk"] == before + 3
     for got in (scalar, vector, view):
         for g, p in zip(got, want):
             assert_same(g, p)

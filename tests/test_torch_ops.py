@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_same, cuda_device, jax_ref  # noqa: F401
-from repro_torch.kernels import LAUNCHES, ops, ref
+from repro_torch.kernels import LAUNCHES, _ring, ops, ref
 from repro_torch.kernels import fused_lif_gemm as fk
 from repro_torch.kernels import lif_step as lk
 from repro_torch.kernels import spike_gemm as sk
@@ -47,6 +47,101 @@ def test_spike_gemm_matches_jax(jax_ref, mkn, density, skip):
                                          skip_mode=mode)
     assert got.dtype == torch.int32
     assert_same(got, want)
+
+
+@pytest.mark.parametrize("skip", SKIPS, ids=["reduce", "bitmap", "dense"])
+@pytest.mark.parametrize("density", [0.0, 0.05])
+def test_spike_gemm_wide_fan_in_matches_jax(jax_ref, density, skip):
+    """A fan-in beyond the ring's reach (the tile-loop route on the card)."""
+    skip_empty, mode = skip
+    s, w = _gemm_inputs(40, 1500, 12, density)
+    assert sk.plan(40, 1500, 12, 132).route == "tile"
+    got = sk.spike_gemm(torch.from_numpy(s), torch.from_numpy(w),
+                        skip_empty=skip_empty, skip_mode=mode)
+    jnp = jax_ref.jnp
+    want = jax_ref.spike_gemm.spike_gemm(jnp.asarray(s), jnp.asarray(w),
+                                         interpret=True, skip_empty=skip_empty,
+                                         skip_mode=mode)
+    assert_same(got, want)
+
+
+# B4's plan: the main paths' shapes, ragged ones, both sides of the ring.
+B4_PLAN_SHAPES = [(221184, 288, 32), (221184, 288, 2), (16384, 144, 16),
+                  (16384, 18, 16), (4, 64, 11), (257, 70, 33), (100, 1441, 32),
+                  (100, 1442, 32), (4096, 2000, 32), (1, 5, 100)]
+
+
+@pytest.mark.parametrize("mkn", B4_PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("store", ["frag", "bulk"])
+def test_spike_gemm_plan_geometry(mkn, sms, store):
+    """On the ring: a persistent grid no larger than the tiles or the card,
+    2-8 stages, shared memory within a block's share, a bulk store only
+    where one slab covers N; else the tile loop, one block per M tile."""
+    m, k, n = mkn
+    plan = sk.plan(m, k, n, sms, store)
+    slabs, tiles = -(-n // 32), -(-m // 64)
+    store = store if n <= 32 else "frag"
+    if plan.route == "tile":
+        assert sk.ring_smem(k, n, 2, store) > 227 * 1024
+        assert plan.grid_x == tiles
+        return
+    assert plan.store == store
+    assert 1 <= plan.grid_x <= tiles and 2 <= plan.stages <= 8
+    assert plan.grid_x * slabs <= max(slabs, 4 * sms)
+    smem = sk.ring_smem(k, n, plan.stages, plan.store)
+    per_sm = -(-plan.grid_x * slabs // sms)
+    assert smem <= 227 * 1024 and per_sm * (smem + 1024) <= 228 * 1024
+
+
+def test_spike_gemm_plan_main_shapes():
+    """Flow middle: 2 blocks per SM, 5 stages of 64 x 288 spikes (18,560
+    bytes each) beside the 9,728-byte weight slab (and, storing in bulk, an
+    8 KB output tile); gesture conv: 4 blocks per SM, one tile each."""
+    assert sk.plan(221184, 288, 32, 132, "frag") == ("ring", 264, 5, "frag")
+    assert sk.plan(221184, 288, 32, 132, "bulk") == ("ring", 264, 5, "bulk")
+    assert sk.ring_smem(288, 32, 5, "frag") == 128 + 9728 + 5 * 18560
+    assert sk.ring_smem(288, 32, 5, "bulk") == 128 + 9728 + 8192 + 5 * 18560
+    assert sk.plan(16384, 144, 16, 132)[:3] == ("ring", 256, 5)
+    assert sk.plan(16384, 18, 16, 132)[:3] == ("ring", 256, 8)
+    assert sk.plan(100, 288, 70, 132, "bulk").store == "frag"  # three slabs
+
+
+def test_spike_gemm_plan_picks_the_store():
+    """Left to the plan, the bulk store where blocks walk more than one tile
+    (flow: 3,456 tiles on 264 blocks), fragment stores where each block has
+    one (gesture: 256 tiles, 256 blocks), and wherever N needs two slabs."""
+    assert sk.plan(221184, 288, 32, 132) == ("ring", 264, 5, "bulk")
+    assert sk.plan(221184, 288, 2, 132).store == "bulk"
+    assert sk.plan(16384, 144, 16, 132).store == "frag"
+    assert sk.plan(16384, 18, 16, 132).store == "frag"
+    assert sk.plan(221184, 288, 33, 132).store == "frag"
+    assert sk.plan(4096, 2000, 32, 132).route == "tile"
+
+
+@pytest.mark.parametrize("n", [2, 16, 32, 33])
+@pytest.mark.parametrize("store", ["frag", "bulk", None])
+def test_spike_gemm_route_changes_where_two_stages_stop_fitting(n, store):
+    """The ring up to the last fan-in whose two stages fit (with the store
+    asked for; left to the plan, with fragment stores), the tile loop from
+    the next one on, whatever M and the card."""
+    k_max = max(k for k in range(1, 3000)
+                if sk.ring_smem(k, n, 2, store if n <= 32 and store else "frag")
+                <= 227 * 1024)
+    for m, sms in ((100, 132), (221184, 8)):
+        assert sk.plan(m, k_max, n, sms, store).route == "ring"
+        assert sk.plan(m, k_max + 1, n, sms, store).route == "tile"
+
+
+def test_cuda_tile_is_the_rings_tile():
+    """The bitmap is made at the ring's tile: 64 rows (its M tile), 32
+    channels (its slab), 32 fan-in bytes (one mma), one flag per (64, 32)."""
+    assert sk.CUDA_TILE == (_ring.BM, _ring.NB, _ring.KSTEP) == (64, 32, 32)
+    s = torch.zeros((130, 70), dtype=torch.int8)
+    s[64, 33] = 1
+    bitmap = ref.spike_tile_bitmap(s, sk.CUDA_TILE)
+    assert tuple(bitmap.shape) == (3, 3)
+    assert bitmap.tolist() == [[0, 0, 0], [0, 1, 0], [0, 0, 0]]
 
 
 def test_spike_gemm_rejects_unknown_skip_mode():
@@ -242,3 +337,50 @@ def test_cuda_fused_lif_gemm_float_matches_plain(cuda_device, mkn):
         v_pre = (v * leak if leak != 1.0 else v) + s @ w
         res = ref.compare_float_step(vg, sg, vw, sw, v_pre, 0.5)
         assert res["ok"], res
+
+
+# B4 on the card: ragged M, odd K, N from one n8 tile to three slabs, fan-ins
+# on both sides of the ring's reach (1,441 is its last).
+B4_GPU_SHAPES = [(333, 145, 2), (200, 18, 16), (129, 288, 32), (65, 77, 33),
+                 (97, 64, 70), (70, 1441, 32), (70, 1442, 32), (16384, 144, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", B4_GPU_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_spike_gemm_routes_match_plain(cuda_device, mkn):
+    """B4 on either route, in every skip mode and with both of the ring's
+    stores, on random and on clustered spikes (empty 64-row tiles)."""
+    m, k, n = mkn
+    assert sk.plan(m, k, n, 132).route == ("ring" if k <= 1441 else "tile")
+    s, w = (torch.from_numpy(x) for x in _gemm_inputs(m, k, n, 0.1))
+    clustered = s.clone()
+    clustered[: min(m, 64)] = 0
+    clustered[m // 2:] = 0
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for spikes in (s, clustered):
+        want = ref.spike_gemm_ref(spikes, w)
+        for store in ("frag", "bulk"):
+            plan = sk.plan(m, k, n, sms, store)
+            for skip_empty, mode in SKIPS:
+                got = sk.launch(spikes.to(cuda_device), w.to(cuda_device), plan,
+                                skip_empty, mode)
+                torch.cuda.synchronize()
+                assert got.is_cuda
+                assert_same(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_spike_gemm_view_and_launches(cuda_device):
+    """Spikes that start off 16-byte alignment give the same result, and
+    each call launches the kernel once whatever its mode."""
+    s, w = (torch.from_numpy(x) for x in _gemm_inputs(333, 144, 16, 0.1))
+    want = ref.spike_gemm_ref(s, w)
+    flat = torch.zeros(s.numel() + 1, dtype=torch.int8, device=cuda_device)
+    view = flat[1:].view(s.shape)
+    view.copy_(s.to(cuda_device))
+    assert view.data_ptr() % 16 != 0
+    before = LAUNCHES["spike_gemm"]
+    for skip_empty, mode in SKIPS:
+        assert_same(sk.spike_gemm(view, w.to(cuda_device), skip_empty=skip_empty,
+                                  skip_mode=mode), want)
+    assert LAUNCHES["spike_gemm"] == before + len(SKIPS)
