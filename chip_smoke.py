@@ -19,8 +19,8 @@ Phases, each printing JSON lines:
                 float ones within the float tolerance (Vmem atol=rtol=1e-5,
                 spikes equal except where the pre-reset Vmem lies within
                 1e-5 of the threshold, each such spot counted); scalar and
-                per-channel thresholds, every skip mode and both of B4's
-                stores, hard and soft reset, T in {1, 3, 4, 5}, 0 % and
+                per-channel thresholds, every skip mode, hard and soft
+                reset, T in {1, 3, 4, 5}, 0 % and
                 10 % random spikes.  Then timings: CUDA events over eager
                 launches (``ms``, host overhead included) and over a
                 CUDA-graph replay of 100 launches (``graph_ms``, the device
@@ -354,9 +354,8 @@ def _check_smem() -> None:
                     "spidr_fused_lif_gemm_int_smem")(k, n, stages), fl.tc_smem(k, n, stages)))
             pairs.append((f"B2 stages={stages}", fl._fn(
                 "spidr_fused_lif_gemm_int_tblk_smem")(k, n, stages), fl.tblk_smem(k, n, stages)))
-            for store in ("frag", "bulk"):
-                pairs.append((f"B4 stages={stages} {store}", sg["spidr_spike_gemm_smem"](
-                    k, n, stages, int(store == "bulk")), sk.ring_smem(k, n, stages, store)))
+            pairs.append((f"B4 stages={stages}", sg["spidr_spike_gemm_smem"](
+                k, n, stages), sk.ring_smem(k, n, stages)))
         for what, c_bytes, py_bytes in pairs:
             check(c_bytes == py_bytes, f"{what} at {shape_name}: the wrapper's "
                   f"shared memory {py_bytes} != the kernel's {c_bytes}")
@@ -513,23 +512,19 @@ def phase_unfused_kernels(torch, dev):
     b4_routes = set()
 
     def hold_b4(s8, w8, what):
-        """B4 in every skip mode and with both of the ring's stores."""
+        """B4 in every skip mode."""
         want = ref.spike_gemm_ref(s8, w8)
         (m, k), n = s8.shape, w8.shape[1]
-        for store in ("frag", "bulk"):
-            plan = sk.plan(m, k, n, sms, store)
-            b4_routes.add(plan.route)
-            for skip_empty, mode in SKIPS:
-                got = sk.launch(s8, w8, plan, skip_empty, mode)
-                torch.cuda.synchronize()
-                err = int((got.long() - want.long()).abs().max())
-                max_err["spike_gemm"] = max(max_err["spike_gemm"], err)
-                check(err == 0, f"spike_gemm != plain {what} skip_empty="
-                      f"{skip_empty} mode={mode} plan={plan}: {err}")
-                cases["spike_gemm"] += 1
-        got = spike_gemm(s8, w8)  # the public wrapper, its own plan
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"spike_gemm != plain {what} (wrapper)")
+        plan = sk.plan(m, k, n, sms)
+        b4_routes.add(plan.route)
+        for skip_empty, mode in SKIPS:
+            got = spike_gemm(s8, w8, skip_empty=skip_empty, skip_mode=mode)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            max_err["spike_gemm"] = max(max_err["spike_gemm"], err)
+            check(err == 0, f"spike_gemm != plain {what} skip_empty="
+                  f"{skip_empty} mode={mode} plan={plan}: {err}")
+            cases["spike_gemm"] += 1
 
     def hold_float(name, res, what):
         check(res["ok"], f"{name} disagrees with plain {what}: {res}")
@@ -598,7 +593,6 @@ def phase_unfused_kernels(torch, dev):
         nnz = int((s8 != 0).sum())
         plan = sk.plan(m, k, n, sms)
         row = {"shape": shape_name, "M": m, "K": k, "N": n, **_plan_row(plan),
-               "store": plan.store,
                "ms": _time_ms(torch, lambda: spike_gemm(s8, w8), 20),
                "graph_ms": _graph_ms(torch, lambda: spike_gemm(s8, w8)),
                "graph_ms_by_mode": {
@@ -611,12 +605,6 @@ def phase_unfused_kernels(torch, dev):
                    torch, lambda: ref.spike_tile_bitmap(s8, sk.CUDA_TILE)),
                "plain_ms": _time_ms(torch, lambda: ref.spike_gemm_ref(s8, w8), 5),
                **_roofline(m * k + k * n + 4 * m * n, 2 * nnz * n, INT8_OPS_PER_S)}
-        # The ring's two output stores, in turns (the plan picks one by shape).
-        stores = {"frag": [], "bulk": []}
-        for store in ("frag", "bulk", "bulk", "frag") * 2:
-            p = sk.plan(m, k, n, sms, store)
-            stores[store].append(_graph_ms(torch, lambda: sk.launch(s8, w8, p)))
-        row["graph_ms_by_store_turns"] = stores
         try:
             lib = torch._int_mm(s8, w8)
             row["library_max_abs_err"] = int((lib.long() - ref.spike_gemm_ref(

@@ -26,13 +26,10 @@ BARRIER_BYTES = 128
 class Plan(NamedTuple):
     """How a B2 or B4 call launches: ``route`` "ring" (the tensor-core
     ring, ``grid_x`` blocks per slab, ``stages`` stages) or "tile" (the
-    first design's tile loop, for a fan-in the ring cannot hold); ``store``
-    is B4's output path, "frag" (fragment stores) or "bulk" (one bulk copy
-    per tile)."""
+    first design's tile loop, for a fan-in the ring cannot hold)."""
     route: str
     grid_x: int
     stages: int
-    store: str = "frag"
 
 
 def round_up(x: int, a: int) -> int:
@@ -50,7 +47,7 @@ def spike_bytes(k: int, slack: int) -> int:
 
 
 def tile_bytes(n: int) -> int:
-    """A 64 x N int32 tile (Vmem or output) when one slab covers N, else 0."""
+    """A 64 x N int32 Vmem tile when one slab covers N, else 0."""
     return round_up(BM * n * 4, 128) if n <= NB else 0
 
 

@@ -132,19 +132,30 @@ __device__ __forceinline__ void load_thresholds(const int32_t* __restrict__ THR,
 
 // ---------------------------------------------------------------------------
 // B1: one integer layer-timestep on the int8 tensor cores (see the header).
+// Its body keeps its own issue, weight-slab and k loops, as written before
+// tc_ring.cuh existed, and uses the header's primitives only: built from
+// the header's shared loops (tile_mma, load_weight_slab, issue_spans) it
+// compiled to other code and ran 4-5 % slower at gesture-first (PERF.md).
 // ---------------------------------------------------------------------------
-// Thread 0: start the bulk copies of tile `tile` (spikes, and Vmem when
-// vpre) into stage `st`.
+// Thread 0: start the bulk copies of tile `tile` into stage `st`.  The
+// tile's spikes and Vmem are contiguous in device memory; a tail of under
+// 16 bytes (a ragged last tile) is copied by plain loads, which the
+// barriers between this call and the stage's use publish.
 __device__ __forceinline__ void issue_tile(const int8_t* S, const int32_t* V,
                                            int M, int K, int N, bool vpre,
                                            int tile, uint8_t* st, int s_bytes,
                                            uint64_t* bar) {
   const int64_t m0 = int64_t(tile) * TC_BM;
-  const uint32_t rows = tile_rows(M, tile);
-  issue_spans(bar,
-              Span{st, reinterpret_cast<const uint8_t*>(S + m0 * K), rows * K},
-              Span{st + s_bytes, reinterpret_cast<const uint8_t*>(V + m0 * N),
-                   vpre ? rows * N * 4 : 0u});
+  const uint32_t rows = uint32_t(min(int64_t(TC_BM), M - m0));
+  const uint32_t sb = rows * K, sbulk = sb & ~15u;
+  const uint32_t vb = vpre ? rows * N * 4 : 0u, vbulk = vb & ~15u;
+  const uint8_t* sg = reinterpret_cast<const uint8_t*>(S + m0 * K);
+  const uint8_t* vg = reinterpret_cast<const uint8_t*>(V + m0 * N);
+  mbar_expect_tx(bar, sbulk + vbulk);
+  if (sbulk) bulk_g2s(st, sg, sbulk, bar);
+  if (vbulk) bulk_g2s(st + s_bytes, vg, vbulk, bar);
+  for (uint32_t b = sbulk; b < sb; ++b) st[b] = sg[b];
+  for (uint32_t b = vbulk; b < vb; ++b) st[s_bytes + b] = vg[b];
 }
 
 // Block (x, y) walks M tiles x, x + gridDim.x, ... for channels
@@ -164,8 +175,9 @@ lif_gemm_tc_kernel(const int8_t* __restrict__ S, const int8_t* __restrict__ W,
   uint8_t* ring = wsm + lay.w_bytes;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.y * TC_NB;
+  const int n0 = blockIdx.y * TC_NB, nb = min(TC_NB, N - n0);
   const bool vpre = N <= TC_NB;
+  const int k_pad = round_up(K, 32);
   const int tiles = (M + TC_BM - 1) / TC_BM;
 
   if (threadIdx.x == 0) {
@@ -178,10 +190,33 @@ lif_gemm_tc_kernel(const int8_t* __restrict__ S, const int8_t* __restrict__ W,
                    lay.s_bytes, &full[s]);
     }
   }
-  // The weight slab, while the first tiles are in flight.
-  load_weight_slab<NT>(W, K, N, n0, wsm, lay.w_stride);
+  // The weight slab, while the first tiles are in flight: wsm[n * w_stride
+  // + k] = W[k, n0 + n], zero past K and past the slab's channels.
+  constexpr int NP = NT * 8;
+  const int wtotal = k_pad * NP;
+  for (int base = threadIdx.x; base < wtotal; base += TC_THREADS * 8) {
+    int8_t val[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int idx = base + u * TC_THREADS, k = idx / NP, n = idx % NP;
+      val[u] = (idx < wtotal && k < K && n < nb) ? W[int64_t(k) * N + n0 + n]
+                                                  : int8_t(0);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int idx = base + u * TC_THREADS;
+      if (idx < wtotal) wsm[(idx % NP) * lay.w_stride + idx / NP] = uint8_t(val[u]);
+    }
+  }
+  // The thresholds of this thread's columns n0 + 8j + 2tig + c.
   int thr[NT][2];
-  load_thresholds<NT>(THR, thr_scalar, N, n0, thr);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int n = n0 + j * 8 + tig * 2 + c;
+      thr[j][c] = THR == nullptr ? thr_scalar : (n < N ? THR[n] : 0);
+    }
   __syncthreads();
 
   const int r0 = warp * 16;  // this warp's rows of every tile
@@ -191,7 +226,30 @@ lif_gemm_tc_kernel(const int8_t* __restrict__ S, const int8_t* __restrict__ W,
     const uint8_t* st = ring + s * stage_bytes;
 
     int acc[NT][4];
-    tile_mma<NT, LDSM>(st, K, wsm, lay.w_stride, acc);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+    for (int k0 = 0; k0 < k_pad; k0 += 32) {
+      uint32_t a[4];
+      if constexpr (LDSM) {
+        ldmatrix_x4(a, st + (r0 + (lane & 15)) * K + k0 + (lane >> 4) * 16);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint8_t* p =
+              st + (r0 + g + (q & 1) * 8) * K + k0 + (q >> 1) * 16 + tig * 4;
+          a[q] = uint32_t(p[0]) | uint32_t(p[1]) << 8 | uint32_t(p[2]) << 16 |
+                 uint32_t(p[3]) << 24;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint8_t* wp = wsm + (j * 8 + g) * lay.w_stride + k0 + tig * 4;
+        mma_s8(acc[j], a, *reinterpret_cast<const uint32_t*>(wp),
+               *reinterpret_cast<const uint32_t*>(wp + 16));
+      }
+    }
 
     // The neuron program on the fragment: rows g and g + 8 of the warp's
     // 16, columns 8j + 2tig and 8j + 2tig + 1.

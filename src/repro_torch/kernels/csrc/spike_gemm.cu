@@ -22,11 +22,8 @@
 // tiles, the block's weight slab resident in shared memory, each tile's
 // 64 x K spikes streamed by one bulk copy into a ring of up to 8 stages
 // (a stage holds spikes only), mma.sync m16n8k32 products, and the int32
-// accumulator written unsaturated.  The output tile of 64 x N int32 (one
-// slab covers N) is one contiguous range; the kernel writes it either as
-// 8-byte fragment stores (BULK false) or staged in shared memory and
-// written by one bulk copy to device memory (BULK true).  The wrapper's
-// plan picks the grid, the stages and the store.
+// accumulator written unsaturated by 8-byte fragment stores.  The wrapper's
+// plan picks the grid and the stages.
 //
 // skip_mode, all bit-identical:
 //   0 dense   every tile is multiplied;
@@ -58,11 +55,10 @@ constexpr int RING_MAX_STAGES = 8;  // full barriers at [0, 64), live words at [
 constexpr int RING_SLACK = 32;
 
 // Shared memory of the ring kernel: barriers and per-stage live words, the
-// weight slab, the output tile (BULK), the stages.  Mirrored by the wrapper.
-inline int ring_smem(int K, int N, int stages, bool bulk) {
+// weight slab, the stages.  Mirrored by the wrapper.
+inline int ring_smem(int K, int N, int stages) {
   const TcLayout lay(K, N, RING_SLACK);
-  return TC_BARRIER_BYTES + lay.w_bytes + (bulk ? lay.v_bytes : 0) +
-         stages * lay.s_bytes;
+  return TC_BARRIER_BYTES + lay.w_bytes + stages * lay.s_bytes;
 }
 
 // Warp 0 (all lanes): start the block's j-th tile (blockIdx.x + j *
@@ -97,9 +93,8 @@ __device__ __forceinline__ void ring_issue(const int8_t* S, const int32_t* BITMA
 }
 
 // Block (x, y) walks M tiles x, x + gridDim.x, ... for channels
-// [32y, 32y + 32).  NT n8 tiles cover the slab; LDSM: K % 16 == 0; BULK:
-// the output tile leaves by one bulk copy (N <= 32 only).
-template <int NT, bool LDSM, bool BULK>
+// [32y, 32y + 32).  NT n8 tiles cover the slab; LDSM: K % 16 == 0.
+template <int NT, bool LDSM>
 __global__ void __launch_bounds__(TC_THREADS)
 spike_gemm_tc_kernel(const int8_t* __restrict__ S, const int8_t* __restrict__ W,
                      const int32_t* __restrict__ BITMAP,
@@ -109,8 +104,7 @@ spike_gemm_tc_kernel(const int8_t* __restrict__ S, const int8_t* __restrict__ W,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   int* live = reinterpret_cast<int*>(smem + 64);
   uint8_t* wsm = smem + TC_BARRIER_BYTES;
-  int32_t* osm = reinterpret_cast<int32_t*>(wsm + lay.w_bytes);
-  uint8_t* ring = wsm + lay.w_bytes + (BULK ? lay.v_bytes : 0);
+  uint8_t* ring = wsm + lay.w_bytes;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tig = lane & 3;
   const int n0 = blockIdx.y * TC_NB;
@@ -143,7 +137,6 @@ spike_gemm_tc_kernel(const int8_t* __restrict__ S, const int8_t* __restrict__ W,
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[j][i] = 0;
     }
-    if (BULK && threadIdx.x == 0) bulk_wait_read();  // osm free again
     __syncthreads();  // every warp is done with stage s
     if (warp == 0 && tile + stages * gridDim.x < tiles) {
       if (lane == 0) fence_proxy_async();
@@ -152,56 +145,32 @@ spike_gemm_tc_kernel(const int8_t* __restrict__ S, const int8_t* __restrict__ W,
     }
 
     const int64_t m0 = int64_t(tile) * TC_BM;
-    if constexpr (BULK) {
-      // The fragment into the row-major (64, N) tile, then one bulk copy.
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < 2; ++h) {
+      const int64_t m = m0 + r0 + g + 8 * h;
+      if (m >= M) continue;
+      int32_t* o = OUT + m * N;
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int n = j * 8 + tig * 2 + c;
-            if (n < N) osm[(r0 + g + 8 * h) * N + n] = acc[j][2 * h + c];
-          }
-      fence_proxy_async();
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        const uint32_t bytes = tile_rows(M, tile) * N * 4, bulk = bytes & ~15u;
-        uint8_t* dst = reinterpret_cast<uint8_t*>(OUT + m0 * N);
-        const uint8_t* src = reinterpret_cast<const uint8_t*>(osm);
-        if (bulk) bulk_s2g(dst, src, bulk);
-        for (uint32_t b = bulk; b < bytes; ++b) dst[b] = src[b];
-      }
-    } else {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int64_t m = m0 + r0 + g + 8 * h;
-        if (m >= M) continue;
-        int32_t* o = OUT + m * N;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int n = n0 + j * 8 + tig * 2;
-          if (n >= N) continue;
-          if ((N & 1) == 0) {  // n + 1 < N, and 8-byte aligned
-            *reinterpret_cast<int2*>(o + n) = make_int2(acc[j][2 * h], acc[j][2 * h + 1]);
-          } else {
-            o[n] = acc[j][2 * h];
-            if (n + 1 < N) o[n + 1] = acc[j][2 * h + 1];
-          }
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + j * 8 + tig * 2;
+        if (n >= N) continue;
+        if ((N & 1) == 0) {  // n + 1 < N, and 8-byte aligned
+          *reinterpret_cast<int2*>(o + n) = make_int2(acc[j][2 * h], acc[j][2 * h + 1]);
+        } else {
+          o[n] = acc[j][2 * h];
+          if (n + 1 < N) o[n + 1] = acc[j][2 * h + 1];
         }
       }
     }
   }
-  if (BULK && threadIdx.x == 0) bulk_wait();
 }
 
 using RingKernel = void (*)(const int8_t*, const int8_t*, const int32_t*,
                             int32_t*, int, int, int, int);
 
-template <int NT, bool BULK>
+template <int NT>
 RingKernel ring_kernel(bool ldsm) {
-  return ldsm ? spike_gemm_tc_kernel<NT, true, BULK>
-              : spike_gemm_tc_kernel<NT, false, BULK>;
+  return ldsm ? spike_gemm_tc_kernel<NT, true> : spike_gemm_tc_kernel<NT, false>;
 }
 
 // The tile loop for a fan-in beyond the ring (see the header).
@@ -251,19 +220,18 @@ spike_gemm_kernel(const int8_t* __restrict__ S, const int8_t* __restrict__ W,
 // C interface (loaded with ctypes); returns cudaGetLastError() after the
 // launch.
 // Dynamic shared memory of the ring kernel (the wrapper's plan mirrors it).
-extern "C" int spidr_spike_gemm_smem(int K, int N, int stages, int bulk) {
-  return ring_smem(K, N, stages, bulk != 0);
+extern "C" int spidr_spike_gemm_smem(int K, int N, int stages) {
+  return ring_smem(K, N, stages);
 }
 
 // route 1: the ring kernel on grid_x blocks per slab with `stages` stages,
-// store by bulk copy when bulk (N <= 32), s 16-byte aligned; route 0: the
-// tile loop (grid_x, stages, bulk unused).  bitmap may be null unless
+// s 16-byte aligned; route 0: the tile loop (grid_x, stages unused).  bitmap may be null unless
 // skip_mode == 2, where it holds ceil(M/64) x ceil(K/32) int32 flags,
 // row-major (spike_tile_bitmap at CUDA_TILE).
 extern "C" int spidr_spike_gemm(const void* s, const void* w,
                                 const void* bitmap, void* out, int M, int K,
                                 int N, int skip_mode, int route, int grid_x,
-                                int stages, int bulk, void* stream) {
+                                int stages, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || skip_mode < 0 || skip_mode > 2 ||
       route < 0 || route > 1 || (skip_mode == 2 && bitmap == nullptr))
     return int(cudaErrorInvalidValue);
@@ -271,23 +239,17 @@ extern "C" int spidr_spike_gemm(const void* s, const void* w,
   const int32_t* flags = skip_mode == 2 ? static_cast<const int32_t*>(bitmap)
                                         : nullptr;
   if (route == 1) {
-    const int smem = ring_smem(K, N, stages, bulk != 0);
+    const int smem = ring_smem(K, N, stages);
     if (grid_x <= 0 || stages < 2 || stages > RING_MAX_STAGES ||
-        smem > TC_SMEM_MAX || (bulk && N > TC_NB) ||
-        reinterpret_cast<uintptr_t>(s) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(out) % 16 != 0)
+        smem > TC_SMEM_MAX || reinterpret_cast<uintptr_t>(s) % 16 != 0)
       return int(cudaErrorInvalidValue);
     const int nt = N >= TC_NB ? 4 : (N + 7) / 8;
     const bool ldsm = K % 16 == 0;
-    const RingKernel kernels[2][4] = {
-        {ring_kernel<1, false>(ldsm), ring_kernel<2, false>(ldsm),
-         ring_kernel<3, false>(ldsm), ring_kernel<4, false>(ldsm)},
-        {ring_kernel<1, true>(ldsm), ring_kernel<2, true>(ldsm),
-         ring_kernel<3, true>(ldsm), ring_kernel<4, true>(ldsm)}};
-    const RingKernel kern = kernels[bulk != 0][nt - 1];
-    static bool smem_set[16] = {};
-    const cudaError_t err =
-        allow_smem(kern, smem_set[8 * (bulk != 0) + 2 * (nt - 1) + ldsm]);
+    const RingKernel kernels[4] = {ring_kernel<1>(ldsm), ring_kernel<2>(ldsm),
+                                   ring_kernel<3>(ldsm), ring_kernel<4>(ldsm)};
+    const RingKernel kern = kernels[nt - 1];
+    static bool smem_set[8] = {};
+    const cudaError_t err = allow_smem(kern, smem_set[2 * (nt - 1) + ldsm]);
     if (err != cudaSuccess) return int(err);
     kern<<<dim3(grid_x, (N + TC_NB - 1) / TC_NB), TC_THREADS, smem, st>>>(
         static_cast<const int8_t*>(s), static_cast<const int8_t*>(w), flags,

@@ -34,8 +34,8 @@ __host__ __device__ inline int round_up(int x, int a) { return (x + a - 1) / a *
 // Sizes of the parts of a ring kernel's shared memory: the weight slab,
 // n-major, TC_NB rows of w_stride bytes (K padded to 32, +16 so the
 // B-fragment loads of 8 rows x 4 lanes hit 32 banks); one stage's spike
-// tile (64 x K bytes plus `s_slack`); and one 64 x N int32 tile of Vmem or
-// output when one slab covers N (0 otherwise).  Each kernel lays them out
+// tile (64 x K bytes plus `s_slack`); and one 64 x N int32 tile of Vmem
+// when one slab covers N (0 otherwise).  Each kernel lays them out
 // after TC_BARRIER_BYTES of barriers; the wrappers mirror the sizes
 // (kernels/_ring.py).
 struct TcLayout {
@@ -91,26 +91,6 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
       "r"(smem_addr(bar)) : "memory");
-}
-
-// 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from shared memory to device memory, in the thread's current bulk group.
-__device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
-                                         uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-      "r"(smem_addr(src)), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// Wait until this thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-// Wait until this thread's bulk stores are complete.
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {

@@ -34,7 +34,7 @@ from . import _ring
 from ._build import bind, check, count_launch, kernel_device, raise_on, sm_count
 from .ref import DEFAULT_BLOCK, spike_gemm_ref, spike_tile_bitmap
 
-__all__ = ["CUDA_TILE", "SKIP_MODES", "launch", "plan", "ring_smem", "spike_gemm"]
+__all__ = ["CUDA_TILE", "SKIP_MODES", "plan", "ring_smem", "spike_gemm"]
 
 SKIP_MODES = ("reduce", "bitmap")
 
@@ -47,49 +47,30 @@ _MAX_STAGES, _SLACK = 8, 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # s, w, bitmap, out, M, K, N, skip_mode, route, grid_x, stages, bulk, stream
-    "spidr_spike_gemm": [_P] * 4 + [_I] * 8 + [_P],
-    "spidr_spike_gemm_smem": [_I] * 4,
+    # s, w, bitmap, out, M, K, N, skip_mode, route, grid_x, stages, stream
+    "spidr_spike_gemm": [_P] * 4 + [_I] * 7 + [_P],
+    "spidr_spike_gemm_smem": [_I] * 3,
 }
 _MODE = {False: 0, "reduce": 1, "bitmap": 2}
 
 
-def ring_smem(k: int, n: int, stages: int, store: str = "frag") -> int:
-    """Shared memory of the ring kernel: barriers, the weight slab, the
-    output tile (bulk store), then ``stages`` spike tiles."""
-    out = _ring.tile_bytes(n) if store == "bulk" else 0
-    return (_ring.BARRIER_BYTES + _ring.weight_bytes(k) + out
+def ring_smem(k: int, n: int, stages: int) -> int:
+    """Shared memory of the ring kernel: barriers, the weight slab, then
+    ``stages`` spike tiles."""
+    return (_ring.BARRIER_BYTES + _ring.weight_bytes(k)
             + stages * _ring.spike_bytes(k, _SLACK))
 
 
-def _ring_plan(m: int, k: int, n: int, sms: int, store: str):
-    return _ring.ring_grid(m, k, n, ring_smem(k, n, 0, store),
-                           _ring.spike_bytes(k, _SLACK), _MAX_STAGES, sms)
-
-
 @functools.lru_cache(maxsize=256)  # per launch, from a handful of layer shapes
-def plan(m: int, k: int, n: int, sms: int, store: str | None = None) -> _ring.Plan:
+def plan(m: int, k: int, n: int, sms: int) -> _ring.Plan:
     """The route of ``(m, k) x (k, n)`` on ``sms`` SMs: the ring
     (``_ring.ring_grid``, 2 to 8 stages) wherever two stages fit, else the
-    tile loop, one block per (64, 32) output tile.
-
-    ``store`` is the ring's output path (``Plan.store``): "frag", 8-byte
-    fragment stores, or "bulk", the 64 x N tile staged in shared memory and
-    written by one bulk copy, which needs one slab to cover N.  None picks
-    the faster one on the H100 (``PERF.md``): "bulk" where each block walks
-    more than one tile (the store of one tile overlaps the next tile's
-    products), "frag" where each block has one tile (nothing to overlap the
-    extra barrier and the store with).
-    """
-    if n > _ring.NB:
-        store = "frag"
-    elif store is None:
-        frag, bulk = (_ring_plan(m, k, n, sms, s) for s in ("frag", "bulk"))
-        store = "bulk" if bulk is not None and -(-m // _ring.BM) > frag[0] else "frag"
-    ring = _ring_plan(m, k, n, sms, store)
+    tile loop, one block per (64, 32) output tile."""
+    ring = _ring.ring_grid(m, k, n, ring_smem(k, n, 0), _ring.spike_bytes(k, _SLACK),
+                           _MAX_STAGES, sms)
     if ring is None:
         return _ring.Plan("tile", -(-m // _ring.BM), 0)
-    return _ring.Plan("ring", *ring, store)
+    return _ring.Plan("ring", *ring)
 
 
 def spike_gemm(
@@ -108,16 +89,6 @@ def spike_gemm(
     dev = kernel_device("spike_gemm", spikes, weights)
     if dev is None:
         return spike_gemm_ref(spikes, weights)
-    m, k = spikes.shape
-    return launch(spikes, weights, plan(m, k, weights.shape[1], sm_count(dev)),
-                  skip_empty, skip_mode)
-
-
-def launch(spikes: torch.Tensor, weights: torch.Tensor, route: _ring.Plan,
-           skip_empty: bool = True, skip_mode: str = "reduce") -> torch.Tensor:
-    """Run the CUDA kernel with ``route`` (a :func:`plan`, or any plan valid
-    for the shape, so a measurement can set the store)."""
-    dev = kernel_device("spike_gemm", spikes, weights)
     if spikes.is_floating_point() or spikes.is_complex():
         raise TypeError(f"spikes must be an integer or bool tensor, got {spikes.dtype}")
     spikes = spikes.to(torch.int8)  # the reference casts spikes to int8 too
@@ -130,6 +101,7 @@ def launch(spikes: torch.Tensor, weights: torch.Tensor, route: _ring.Plan,
         raise ValueError("spike_gemm needs a fan-in K > 0")
     if m == 0 or n == 0:
         return out
+    route = plan(m, k, n, sm_count(dev))
     spikes = _ring.aligned16(spikes)
     mode = _MODE[skip_mode if skip_empty else False]
     bitmap = spike_tile_bitmap(spikes, CUDA_TILE) if mode == 2 else None
@@ -138,7 +110,7 @@ def launch(spikes: torch.Tensor, weights: torch.Tensor, route: _ring.Plan,
             spikes.data_ptr(), weights.data_ptr(),
             None if bitmap is None else bitmap.data_ptr(), out.data_ptr(),
             m, k, n, mode, int(route.route == "ring"), route.grid_x, route.stages,
-            int(route.store == "bulk"), torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "spike_gemm")
     count_launch("spike_gemm")
     return out

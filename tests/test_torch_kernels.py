@@ -198,9 +198,9 @@ def test_tblk_plan_main_shapes():
     """Flow middle: 2 blocks per SM, 5 stages of 64 x 288 spikes (48 bytes
     of slack: 18,560 each) beside the 9,728-byte weight slab and one 8 KB
     Vmem buffer; T does not enter the plan."""
-    assert fk.tblk_plan(221184, 288, 32, 132) == ("ring", 264, 5, "frag")
+    assert fk.tblk_plan(221184, 288, 32, 132) == ("ring", 264, 5)
     assert fk.tblk_smem(288, 32, 5) == 128 + 9728 + 8192 + 5 * 18560
-    assert fk.tblk_plan(16384, 144, 16, 132) == ("ring", 256, 5, "frag")
+    assert fk.tblk_plan(16384, 144, 16, 132) == ("ring", 256, 5)
     assert fk.tblk_plan(221184, 288, 2, 132)[:3] == ("ring", 264, 5)
     # Two slabs: Vmem comes from device memory, no Vmem buffer.
     assert fk.tblk_smem(288, 33, 2) == 128 + 9728 + 2 * 18560

@@ -72,65 +72,58 @@ B4_PLAN_SHAPES = [(221184, 288, 32), (221184, 288, 2), (16384, 144, 16),
 
 
 @pytest.mark.parametrize("mkn", B4_PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("sms", [132, 8])
-@pytest.mark.parametrize("store", ["frag", "bulk"])
-def test_spike_gemm_plan_geometry(mkn, sms, store):
+@pytest.mark.parametrize("sms", [132, 114, 16, 8])
+def test_spike_gemm_plan_geometry(mkn, sms):
     """On the ring: a persistent grid no larger than the tiles or the card,
-    2-8 stages, shared memory within a block's share, a bulk store only
-    where one slab covers N; else the tile loop, one block per M tile."""
+    2-8 stages, shared memory within a block's share; else the tile loop,
+    one block per M tile."""
     m, k, n = mkn
-    plan = sk.plan(m, k, n, sms, store)
+    plan = sk.plan(m, k, n, sms)
     slabs, tiles = -(-n // 32), -(-m // 64)
-    store = store if n <= 32 else "frag"
     if plan.route == "tile":
-        assert sk.ring_smem(k, n, 2, store) > 227 * 1024
+        assert sk.ring_smem(k, n, 2) > 227 * 1024
         assert plan.grid_x == tiles
         return
-    assert plan.store == store
     assert 1 <= plan.grid_x <= tiles and 2 <= plan.stages <= 8
     assert plan.grid_x * slabs <= max(slabs, 4 * sms)
-    smem = sk.ring_smem(k, n, plan.stages, plan.store)
+    smem = sk.ring_smem(k, n, plan.stages)
     per_sm = -(-plan.grid_x * slabs // sms)
     assert smem <= 227 * 1024 and per_sm * (smem + 1024) <= 228 * 1024
 
 
 def test_spike_gemm_plan_main_shapes():
     """Flow middle: 2 blocks per SM, 5 stages of 64 x 288 spikes (18,560
-    bytes each) beside the 9,728-byte weight slab (and, storing in bulk, an
-    8 KB output tile); gesture conv: 4 blocks per SM, one tile each."""
-    assert sk.plan(221184, 288, 32, 132, "frag") == ("ring", 264, 5, "frag")
-    assert sk.plan(221184, 288, 32, 132, "bulk") == ("ring", 264, 5, "bulk")
-    assert sk.ring_smem(288, 32, 5, "frag") == 128 + 9728 + 5 * 18560
-    assert sk.ring_smem(288, 32, 5, "bulk") == 128 + 9728 + 8192 + 5 * 18560
-    assert sk.plan(16384, 144, 16, 132)[:3] == ("ring", 256, 5)
-    assert sk.plan(16384, 18, 16, 132)[:3] == ("ring", 256, 8)
-    assert sk.plan(100, 288, 70, 132, "bulk").store == "frag"  # three slabs
-
-
-def test_spike_gemm_plan_picks_the_store():
-    """Left to the plan, the bulk store where blocks walk more than one tile
-    (flow: 3,456 tiles on 264 blocks), fragment stores where each block has
-    one (gesture: 256 tiles, 256 blocks), and wherever N needs two slabs."""
-    assert sk.plan(221184, 288, 32, 132) == ("ring", 264, 5, "bulk")
-    assert sk.plan(221184, 288, 2, 132).store == "bulk"
-    assert sk.plan(16384, 144, 16, 132).store == "frag"
-    assert sk.plan(16384, 18, 16, 132).store == "frag"
-    assert sk.plan(221184, 288, 33, 132).store == "frag"
+    bytes each) beside the 9,728-byte weight slab; gesture conv: 4 blocks
+    per SM, one tile each."""
+    assert sk.plan(221184, 288, 32, 132) == ("ring", 264, 5)
+    assert sk.ring_smem(288, 32, 5) == 128 + 9728 + 5 * 18560
+    assert sk.plan(221184, 288, 2, 132) == ("ring", 264, 5)
+    assert sk.plan(16384, 144, 16, 132) == ("ring", 256, 5)
+    assert sk.plan(16384, 18, 16, 132) == ("ring", 256, 8)
     assert sk.plan(4096, 2000, 32, 132).route == "tile"
 
 
-@pytest.mark.parametrize("n", [2, 16, 32, 33])
-@pytest.mark.parametrize("store", ["frag", "bulk", None])
-def test_spike_gemm_route_changes_where_two_stages_stop_fitting(n, store):
-    """The ring up to the last fan-in whose two stages fit (with the store
-    asked for; left to the plan, with fragment stores), the tile loop from
-    the next one on, whatever M and the card."""
-    k_max = max(k for k in range(1, 3000)
-                if sk.ring_smem(k, n, 2, store if n <= 32 and store else "frag")
-                <= 227 * 1024)
+@pytest.mark.parametrize("mkn", B4_PLAN_SHAPES[:7], ids=lambda s: "x".join(map(str, s)))
+def test_spike_gemm_plan_takes_the_stages_that_fit(mkn):
+    """The ring's stages are as many as a block's share of an SM (at 4, 2
+    or 1 blocks per SM) leaves room for, up to 8: one more would not fit."""
+    m, k, n = mkn
+    plan = sk.plan(m, k, n, 132)
+    assert plan.route == "ring"
+    shares = [min(227 * 1024, 228 * 1024 // per_sm - 1024) for per_sm in (4, 2, 1)]
+    assert any(sk.ring_smem(k, n, plan.stages) <= share and
+               (plan.stages == 8 or sk.ring_smem(k, n, plan.stages + 1) > share)
+               for share in shares)
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 16, 24, 32, 33, 64, 70, 100, 128, 129])
+def test_spike_gemm_route_changes_where_two_stages_stop_fitting(n):
+    """The ring up to the last fan-in whose two stages fit, the tile loop
+    from the next one on, whatever M and the card."""
+    k_max = max(k for k in range(1, 3000) if sk.ring_smem(k, n, 2) <= 227 * 1024)
     for m, sms in ((100, 132), (221184, 8)):
-        assert sk.plan(m, k_max, n, sms, store).route == "ring"
-        assert sk.plan(m, k_max + 1, n, sms, store).route == "tile"
+        assert sk.plan(m, k_max, n, sms).route == "ring"
+        assert sk.plan(m, k_max + 1, n, sms).route == "tile"
 
 
 def test_cuda_tile_is_the_rings_tile():
@@ -348,25 +341,22 @@ B4_GPU_SHAPES = [(333, 145, 2), (200, 18, 16), (129, 288, 32), (65, 77, 33),
 @pytest.mark.gpu
 @pytest.mark.parametrize("mkn", B4_GPU_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_cuda_spike_gemm_routes_match_plain(cuda_device, mkn):
-    """B4 on either route, in every skip mode and with both of the ring's
-    stores, on random and on clustered spikes (empty 64-row tiles)."""
+    """B4 on either route, in every skip mode, on random and on clustered
+    spikes (empty 64-row tiles)."""
     m, k, n = mkn
     assert sk.plan(m, k, n, 132).route == ("ring" if k <= 1441 else "tile")
     s, w = (torch.from_numpy(x) for x in _gemm_inputs(m, k, n, 0.1))
     clustered = s.clone()
     clustered[: min(m, 64)] = 0
     clustered[m // 2:] = 0
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for spikes in (s, clustered):
         want = ref.spike_gemm_ref(spikes, w)
-        for store in ("frag", "bulk"):
-            plan = sk.plan(m, k, n, sms, store)
-            for skip_empty, mode in SKIPS:
-                got = sk.launch(spikes.to(cuda_device), w.to(cuda_device), plan,
-                                skip_empty, mode)
-                torch.cuda.synchronize()
-                assert got.is_cuda
-                assert_same(got, want)
+        for skip_empty, mode in SKIPS:
+            got = sk.spike_gemm(spikes.to(cuda_device), w.to(cuda_device),
+                                skip_empty=skip_empty, skip_mode=mode)
+            torch.cuda.synchronize()
+            assert got.is_cuda
+            assert_same(got, want)
 
 
 @pytest.mark.gpu
