@@ -254,14 +254,26 @@ SHAPES = {  # name: (M, K, N) as the main path gives them
     "flow_last": (2 * 288 * 384, 288, 2),
 }
 # Checked beside SHAPES: a fan-in whose two ring stages do not fit in a
-# block's shared memory (B2's and B4's tile-loop route; B1 refuses it), N =
-# 33 (two slabs), and a ragged M with an odd K (a short last tile, and B2's
+# block's shared memory (the tile-loop route of B1, B2 and B4), one past the
+# tile loop's resident weight slice (its fan-in walked in chunks), N = 33
+# (two slabs), and a ragged M with an odd K (a short last tile, and B2's
 # planes starting off 16 bytes).
 EDGE_SHAPES = {
     "wide_fan_in": (4096, 2000, 32),
+    "chunked_fan_in": (1024, 7105, 32),
     "n33": (4096, 288, 33),
     "ragged": (4097, 145, 16),
 }
+# B3's shapes on its main path, the quickstart's float forward (gesture
+# net, 64x64, B=4, T=10): 10, 20, 20 and 10 launches per walk.
+FLOAT_SHAPES = {
+    "gesture_first": (4 * 64 * 64, 18, 16),
+    "gesture_conv": (4 * 64 * 64, 144, 16),
+    "gesture_conv_pooled": (4 * 32 * 32, 144, 16),
+    "gesture_fc": (4, 64, 11),
+}
+B3_TIMED = {**FLOAT_SHAPES, "flow_middle": SHAPES["flow_middle"]}
+B3_CHECKED = {**B3_TIMED, "flow_last": SHAPES["flow_last"], **EDGE_SHAPES}
 
 
 def _inputs(torch, dev, m, k, n, vmem_bits, t=None, density=0.1, seed=0):
@@ -343,15 +355,18 @@ def _check_smem() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_lif_gemm as fl
     from repro_torch.kernels import spike_gemm as sk
+    from repro_torch.kernels import wkv_chunk as wk
 
     sg = _build.bind("spike_gemm", sk._SIGNATURES)
-    for shape_name, (m, k, n) in {**SHAPES, **EDGE_SHAPES}.items():
+    for shape_name, (m, k, n) in {**SHAPES, **EDGE_SHAPES, **FLOAT_SHAPES}.items():
         pairs = [("B2 tile loop", fl._fn("spidr_fused_lif_gemm_int_tblk_tile_smem")(k)
                   + fl._TILE_STATIC, fl.tblk_tile_smem(k))]
         for stages in range(2, 9):
             if stages <= 4:
                 pairs.append((f"B1 stages={stages}", fl._fn(
                     "spidr_fused_lif_gemm_int_smem")(k, n, stages), fl.tc_smem(k, n, stages)))
+                pairs.append((f"B3 stages={stages}", fl._fn(
+                    "spidr_fused_lif_gemm_f32_smem")(k, n, stages), fl.f32_smem(k, n, stages)))
             pairs.append((f"B2 stages={stages}", fl._fn(
                 "spidr_fused_lif_gemm_int_tblk_smem")(k, n, stages), fl.tblk_smem(k, n, stages)))
             pairs.append((f"B4 stages={stages}", sg["spidr_spike_gemm_smem"](
@@ -359,6 +374,14 @@ def _check_smem() -> None:
         for what, c_bytes, py_bytes in pairs:
             check(c_bytes == py_bytes, f"{what} at {shape_name}: the wrapper's "
                   f"shared memory {py_bytes} != the kernel's {c_bytes}")
+    wkv = _build.bind("wkv_chunk", wk._SIGNATURES)["spidr_wkv_smem"]
+    for c in wk.SIZES:
+        for n in wk.SIZES:
+            for per_block in (1, 2):
+                check(wkv(c, n, per_block) == wk.smem_bytes(c, n, per_block),
+                      f"B7 C={c} N={n} per_block={per_block}: the wrapper's shared "
+                      f"memory {wk.smem_bytes(c, n, per_block)} != the kernel's "
+                      f"{wkv(c, n, per_block)}")
 
 
 def phase_kernels(torch, dev, fk):
@@ -374,15 +397,14 @@ def phase_kernels(torch, dev, fk):
               "fused_lif_gemm_int_tblk": fk.fused_lif_gemm_int_tblk}
     max_err = {name: 0 for name in kernel}
     checked = {name: 0 for name in kernel}
-    routes = set()
+    routes = {name: set() for name in kernel}
     t0 = time.perf_counter()
     for shape_name, (m, k, n) in {**SHAPES, **EDGE_SHAPES}.items():
         for name, ts in (("fused_lif_gemm_int", (None,)),
                          ("fused_lif_gemm_int_tblk", (4, 3, 1, 5))):
-            if name == "fused_lif_gemm_int" and shape_name == "wide_fan_in":
-                continue  # B1's plan refuses a fan-in beyond its ring
-            if name == "fused_lif_gemm_int_tblk":
-                routes.add(fl.tblk_plan(m, k, n, sms).route)
+            plan = (fl.tc_plan if name == "fused_lif_gemm_int" else fl.tblk_plan)(
+                m, k, n, sms)
+            routes[name].add(plan.route)
             for t in ts:
                 for density in (0.1, 0.0):
                     s, w, v, thr_vec = _inputs(torch, dev, m, k, n, 7, t=t,
@@ -403,12 +425,13 @@ def phase_kernels(torch, dev, fk):
                                           f"soft={soft} skip={skip} density={density}: "
                                           f"max abs err {err}")
                                 checked[name] += 1
-    check(routes == {"ring", "tile"}, f"B2's checks ran the routes {routes}, "
-          "not both")
+    check(all(r == {"ring", "tile"} for r in routes.values()),
+          f"B1's and B2's checks ran the routes {routes}, not both of each")
     small = _small_engine_check(torch, dev)
+    wide = _wide_engine_check(torch, dev)
     emit({"phase": "kernels_vs_plain", "bit_exact": True, "cases": checked,
-          "max_abs_err": max_err, "b2_routes": sorted(routes),
-          "engine_small_cpu_vs_card": small,
+          "max_abs_err": max_err, "routes": {k: sorted(r) for k, r in routes.items()},
+          "engine_small_cpu_vs_card": small, "engine_wide_fan_in_vs_torch": wide,
           "seconds": round(time.perf_counter() - t0, 3)})
 
     # Timings at the main path's shapes: the network's neuron program
@@ -429,11 +452,8 @@ def phase_kernels(torch, dev, fk):
             row = {"shape": shape_name, "T": t, "M": m, "K": k, "N": n,
                    "ms": k_ms, "graph_ms": g_ms, "plain_ms": p_ms,
                    **_bound(s, m, k, n, t)}
-            if t is None:  # B1's persistent grid and ring
-                row["route"] = "ring"
-                row["grid_x"], row["stages"] = fl.tc_plan(m, k, n, sms)
-            else:
-                row.update(_plan_row(fl.tblk_plan(m, k, n, sms)))
+            row.update(_plan_row((fl.tc_plan if t is None else fl.tblk_plan)(
+                m, k, n, sms)))
             results[name]["shapes"].append(row)
             emit({"phase": "kernel_timing", "kernel": name, **row})
             del s, w, v
@@ -442,9 +462,11 @@ def phase_kernels(torch, dev, fk):
 
 def _headline(results: dict) -> dict:
     """The headline numbers are the optical-flow middle layer's, the main
-    paths' largest shape (B5 at that layer's (M, N))."""
-    for r in results.values():
-        main = next(x for x in r["shapes"] if x["shape"] == "flow_middle")
+    paths' largest shape (B5 at that layer's (M, N)); B3's are the
+    quickstart's gesture conv layer's, the largest shape on its path."""
+    for name, r in results.items():
+        shape = "gesture_conv" if name == "fused_lif_gemm" else "flow_middle"
+        main = next(x for x in r["shapes"] if x["shape"] == shape)
         r.update(ms=main["ms"], graph_ms=main["graph_ms"],
                  plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                  bound_by=main["bound_by"])
@@ -452,6 +474,47 @@ def _headline(results: dict) -> dict:
             if key in main:
                 r[key] = main[key]
     return results
+
+
+def _wide_fan_in_net(k):
+    """A 1x1 conv of fan-in ``k`` at 8x8 into an FC layer: past B1's ring
+    (K >= 1,345 at N = 32); 7,105 is past the tile loop's resident slice."""
+    from repro_torch.core.layers import SpikingConvParams, SpikingDenseParams
+    from repro_torch.core.network import SNNLayer, SNNSpec
+    from repro_torch.core.neuron import NeuronConfig
+
+    n = NeuronConfig(model="lif", reset="hard", threshold=0.5, leak=0.95)
+    return SNNSpec(name="wide", input_hw=(8, 8), in_channels=k, timesteps=4,
+                   layers=(SNNLayer("conv", k, 32, conv=SpikingConvParams(1, 1, 1, 0, n)),
+                           SNNLayer("fc", 8 * 8 * 32, 11, fc=SpikingDenseParams(n))),
+                   readout="rate")
+
+
+def _wide_engine_check(torch, dev) -> dict:
+    """Fan-ins the reference takes and the ring cannot hold, through
+    ``spidr.compile`` (8-bit weights, 15-bit Vmem) on the card: the fused
+    engine equals backend="torch" bit for bit; returns the spikes seen."""
+    from repro_torch import spidr
+    from repro_torch.core.network import init_params
+
+    seen = {}
+    for k, t_block in ((1345, 1), (7105, 1), (7105, 4)):
+        spec = _wide_fan_in_net(k)
+        params = init_params(torch.Generator().manual_seed(0), spec)
+        ev = (torch.rand((4, 2, 8, 8, k), generator=torch.Generator().manual_seed(1))
+              < 0.1).to(torch.float32).to(dev)
+        want = spidr.compile(spec, params, spidr.DeployTarget(
+            weight_bits=8, backend="torch"), device=dev).run(ev)
+        got = spidr.compile(spec, params, spidr.DeployTarget(
+            weight_bits=8, backend="fused", t_block=t_block), device=dev).run(ev)
+        for a, b, what in ((got.readout, want.readout, "readout"),
+                           (got.spike_counts, want.spike_counts, "spike counts"),
+                           (got.input_counts, want.input_counts, "input counts")):
+            check(torch.equal(a, b), f"wide fan-in K={k} t_block={t_block}: {what} "
+                  "differ from backend='torch'")
+        seen[f"K={k} t_block={t_block}"] = int(want.spike_counts.sum())
+    check(all(seen.values()), f"wide fan-in: a run without spikes {seen}")
+    return seen
 
 
 def _small_engine_check(torch, dev) -> bool:
@@ -497,6 +560,7 @@ def _pre_reset(v, current, leak):
 
 
 def phase_unfused_kernels(torch, dev):
+    from repro_torch.kernels import fused_lif_gemm as fk
     from repro_torch.kernels import ref
     from repro_torch.kernels import spike_gemm as sk
     from repro_torch.kernels.fused_lif_gemm import fused_lif_gemm
@@ -536,10 +600,8 @@ def phase_unfused_kernels(torch, dev):
         for density in (0.1, 0.0):
             s8, w8, _, _ = _inputs(torch, dev, m, k, n, 7, density=density)
             hold_b4(s8, w8, f"at {shape_name} density={density}")
-    for shape_name, (m, k, n) in SHAPES.items():
+    for shape_name, (m, k, n) in B3_CHECKED.items():
         for density in (0.1, 0.0):
-            s8, w8, _, _ = _inputs(torch, dev, m, k, n, 7, density=density)
-            hold_b4(s8, w8, f"at {shape_name} density={density}")
             s, w, v = _float_inputs(torch, dev, m, k, n, density)
             current = s @ w
             for leak, soft in ((0.95, False), (1.0, True)):
@@ -551,7 +613,12 @@ def phase_unfused_kernels(torch, dev):
                         vg, sg, vw, sw, _pre_reset(v, current, leak), 0.5),
                         f"at {shape_name} density={density} leak={leak} "
                         f"soft={soft} skip={skip}")
-            del s8, w8, s, w, v, current
+            del s, w, v, current
+    for shape_name, (m, k, n) in SHAPES.items():
+        for density in (0.1, 0.0):
+            s8, w8, _, _ = _inputs(torch, dev, m, k, n, 7, density=density)
+            hold_b4(s8, w8, f"at {shape_name} density={density}")
+            del s8, w8
         g = torch.Generator(device=dev).manual_seed(7)
         vf = torch.randn((m, n), generator=g, device=dev) * 0.5
         cur = torch.randn((m, n), generator=g, device=dev) * 0.5
@@ -624,19 +691,8 @@ def phase_unfused_kernels(torch, dev):
         results["spike_gemm"]["shapes"].append(row)
         emit({"phase": "kernel_timing", "kernel": "spike_gemm", **row})
 
-        s, w, v = _float_inputs(torch, dev, m, k, n, seed=1)
-        nnz = int((s != 0).sum())
-        row = {"shape": shape_name, "M": m, "K": k, "N": n,
-               "ms": _time_ms(torch, lambda: fused_lif_gemm(s, w, v, 0.5, 0.95), 20),
-               "graph_ms": _graph_ms(torch, lambda: fused_lif_gemm(s, w, v, 0.5, 0.95)),
-               "plain_ms": _time_ms(torch, lambda: ref.fused_lif_gemm_ref(
-                   s, w, v, 0.5, 0.95), 5),
-               **_roofline(4 * m * k + 4 * k * n + 3 * 4 * m * n, 2 * nnz * n,
-                           FP32_OPS_PER_S)}
-        results["fused_lif_gemm"]["shapes"].append(row)
-        emit({"phase": "kernel_timing", "kernel": "fused_lif_gemm", **row})
-        del s8, w8, s, w
-
+        del s8, w8
+        v = torch.randn((m, n), device=dev) * 0.3
         cur = torch.randn((m, n), device=dev)
         vi = torch.randint(-64, 64, (m, n), device=dev, dtype=torch.int32)
         pi = torch.randint(-64, 64, (m, n), device=dev, dtype=torch.int32)
@@ -652,6 +708,20 @@ def phase_unfused_kernels(torch, dev):
             results[name]["shapes"].append(row)
             emit({"phase": "kernel_timing", "kernel": name, **row})
         del v, cur, vi, pi
+    for shape_name, (m, k, n) in B3_TIMED.items():
+        s, w, v = _float_inputs(torch, dev, m, k, n, seed=1)
+        nnz = int((s != 0).sum())
+        row = {"shape": shape_name, "M": m, "K": k, "N": n,
+               **_plan_row(fk.f32_plan(m, k, n, sms)),
+               "ms": _time_ms(torch, lambda: fused_lif_gemm(s, w, v, 0.5, 0.95), 20),
+               "graph_ms": _graph_ms(torch, lambda: fused_lif_gemm(s, w, v, 0.5, 0.95)),
+               "plain_ms": _time_ms(torch, lambda: ref.fused_lif_gemm_ref(
+                   s, w, v, 0.5, 0.95), 5),
+               **_roofline(4 * m * k + 4 * k * n + 3 * 4 * m * n, 2 * nnz * n,
+                           FP32_OPS_PER_S)}
+        results["fused_lif_gemm"]["shapes"].append(row)
+        emit({"phase": "kernel_timing", "kernel": "fused_lif_gemm", **row})
+        del s, w, v
     return _headline(results)
 
 
@@ -904,6 +974,7 @@ QMM_TOL = {"rtol": 1e-4, "atol": 1e-4}
 # differences (within WKV_TOL) carried through the layers.
 FP32_LOGIT_REL = 1e-3
 LM_HEADS, LM_HEAD_SIZE, LM_CHUNK = 64, 64, 32
+WKV_TIMED = ((1, 64), (1, 512), (4, 512))  # (B, S): a served prompt; prefills
 CM_SHAPE = (4096, 14336)  # rwkv6-7b channel-mix key projection (K, N)
 QMM_SWEEP_M = (1, 4, 8, 16, 17)  # each side of B6's regime cut-over
 
@@ -945,6 +1016,7 @@ def phase_lm_kernels(torch, dev):
     from repro_torch.kernels import quant_matmul as qmm
     from repro_torch.kernels import ref
     from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels import wkv_chunk as wk
     from repro_torch.kernels.wkv_chunk import wkv_sequence
 
     t0 = time.perf_counter()
@@ -964,7 +1036,10 @@ def phase_lm_kernels(torch, dev):
         results["wkv_sequence"]["max_abs_err"] = max(results["wkv_sequence"]["max_abs_err"], err)
         worst["wkv_sequence"] = max(worst["wkv_sequence"], ratio)
         row = {"shape": f"B={b} S={s}", "B": b, "S": s, "H": LM_HEADS,
-               "N": LM_HEAD_SIZE, "chunk": LM_CHUNK, "max_abs_err": err,
+               "N": LM_HEAD_SIZE, "chunk": LM_CHUNK,
+               "plan": wk.plan(b, s, LM_HEADS, LM_CHUNK, LM_HEAD_SIZE,
+                               torch.cuda.get_device_properties(dev).multi_processor_count
+                               )._asdict(), "max_abs_err": err,
                "tol_ratio": ratio,
                "ms": _time_ms(torch, lambda: wkv_sequence(*ins, chunk=LM_CHUNK), 20),
                "graph_ms": _graph_ms(torch, lambda: wkv_sequence(*ins, chunk=LM_CHUNK)),
@@ -973,6 +1048,26 @@ def phase_lm_kernels(torch, dev):
         results["wkv_sequence"]["shapes"].append(row)
         emit({"phase": "kernel_timing", "kernel": "wkv_sequence", **row})
         del ins, got, want
+
+    # Every (C, N) instance of B7, B in {1, 4}, over 4 and 12 chunks (one
+    # and two windows where the cluster allows), the second head with
+    # decays down to -20 per token in steps of 2^-10 (their running sums
+    # exact in float32 in any order: at these magnitudes the plain
+    # version's own float32 rounding of lw_incl would exceed the tolerance).
+    instances = 0
+    for c in wk.SIZES:
+        for n in wk.SIZES:
+            for b, s in ((1, 4 * c), (4, 12 * c)):
+                ins = _wkv_inputs(torch, dev, c * n + b, b, s, h=2, n=n)
+                ins[3][:, :, 1] = torch.round(ins[3][:, :, 1] * 20 * 1024) / 1024
+                got = wkv_sequence(*ins, chunk=c)
+                want = ref.wkv_sequence_ref(*ins, c)
+                torch.cuda.synchronize()
+                ratio = max(_tol_ratio(torch, g_, w_, WKV_TOL) for g_, w_ in zip(got, want))
+                check(ratio <= 1.0, f"wkv_sequence != plain at C={c} N={n} B={b} S={s}: "
+                      f"{ratio:.3f} x the tolerance {WKV_TOL}")
+                worst["wkv_sequence"] = max(worst["wkv_sequence"], ratio)
+                instances += 1
 
     g = torch.Generator(device=dev).manual_seed(3)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1053,7 +1148,8 @@ def phase_lm_kernels(torch, dev):
         del q, wq, w_deq
     emit({"phase": "lm_kernels_vs_plain", "tolerance": {"wkv": WKV_TOL,
                                                         "quant_matmul": QMM_TOL},
-          "quant_matmul_ragged_cases": qmm_cases, "worst_tol_ratio": worst,
+          "quant_matmul_ragged_cases": qmm_cases, "wkv_instances": instances,
+          "worst_tol_ratio": worst,
           "seconds": round(time.perf_counter() - t0, 3)})
     # Headlines at the main path's shapes: a served prompt's prefill (B=1,
     # S=64) for B7, the decode slots' channel-mix (M=4) for B6.

@@ -24,7 +24,7 @@ BARRIER_BYTES = 128
 
 
 class Plan(NamedTuple):
-    """How a B2 or B4 call launches: ``route`` "ring" (the tensor-core
+    """How a B1, B2 or B4 call launches: ``route`` "ring" (the tensor-core
     ring, ``grid_x`` blocks per slab, ``stages`` stages) or "tile" (the
     first design's tile loop, for a fan-in the ring cannot hold)."""
     route: str

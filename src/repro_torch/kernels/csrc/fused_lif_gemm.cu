@@ -10,8 +10,10 @@
 //                                   _tblk_kernel_vec, bitmap prologue fused in):
 //                                   the ring kernel, and the tile loop for a
 //                                   fan-in whose ring does not fit
-//   fused_lif_gemm_f32_kernel       replaces fused_lif_gemm (float,
-//                                   _fused_kernel_f32); see its own note below
+//   lif_gemm_f32_tc_kernel          replaces fused_lif_gemm (float,
+//   fused_lif_gemm_f32_kernel       _fused_kernel_f32): the ring kernel, and
+//                                   the tile loop for a fan-in whose ring does
+//                                   not fit; see their own note below
 //
 // What the integer kernels compute, for each output (m, n) and timestep:
 //   acc      = sum_k S[m,k] * W[k,n]                  (int32, exact)
@@ -34,8 +36,8 @@
 //   * a persistent grid (1 to 4 blocks of 4 warps per SM, as shared memory
 //     allows) walks 64-row M tiles, each block's weight slab resident in
 //     shared memory; a fan-in whose two ring stages do not fit beside it
-//     (K above ~1,350 at N = 32; the networks' K is at most 288) is
-//     refused by the wrapper;
+//     (K above ~1,350 at N = 32; the networks' K is at most 288) takes B2's
+//     tile loop below at T = 1 (the wrapper's plan, tc_plan, picks it);
 //   * a stage holds a tile's spikes (64 x K bytes) and, when one slab
 //     covers N, its Vmem (64 x N int32), both brought by 1-D bulk copies;
 //     tiles i+1 .. i+stages-1 are in flight while tile i is multiplied;
@@ -66,12 +68,16 @@
 //     slack past 64 x K;
 //   * skip_empty has no effect, as in B1.
 // A fan-in whose two ring stages do not fit takes the tile loop below
-// (fused_lif_gemm_int_tblk_kernel, the first design): the block's whole
-// (K, 32) weight slice in shared memory (K up to ~7,000), (64, 64) spike
-// tiles staged by the block and skipped when a block-wide vote
-// (__syncthreads_or) finds them empty (skip_empty), __dp4a on CUDA cores,
-// Vmem carried in registers.  The wrapper's plan (tblk_plan) picks the
-// route by shape before launching.
+// (fused_lif_gemm_int_tblk_kernel, the first design): the block's (K, 32)
+// weight slice in shared memory, (64, 64) spike tiles staged by the block
+// and skipped when a block-wide vote (__syncthreads_or) finds them empty
+// (skip_empty), __dp4a on CUDA cores, Vmem carried in registers.  Up to
+// K = TILE_K_MAX (7,104) the slice stays resident for all T; beyond it the
+// block walks the fan-in in chunks of TILE_K_MAX rows, reloading each
+// chunk's slice per timestep, and carries the int32 sum in registers to
+// the epilogue, which saturates the whole sum once (bit-exact at any K).
+// The wrappers' plans (tc_plan, tblk_plan) pick the route by shape before
+// launching; B1 takes it at T = 1.
 #include "spike_tile.cuh"
 #include "tc_ring.cuh"
 
@@ -473,8 +479,15 @@ TblkKernel tblk_kernel(bool ldsm) {
               : lif_gemm_tblk_tc_kernel<NT, false>;
 }
 
-// B2's tile loop for a fan-in beyond the ring (see the header).  THR null:
-// the scalar thr_scalar.
+// The tile loop's weight slice: all of K (padded to BK) where it fits in a
+// block's shared memory beside the static spike tile, else chunks of
+// TILE_K_MAX fan-in rows.
+constexpr int TILE_K_MAX = ((TC_SMEM_MAX - BM * BK) / (BN * 4) - 4) * 4 / BK * BK;
+
+inline int tile_chunk(int K) { return min(round_up(K, BK), TILE_K_MAX); }
+
+// B2's tile loop for a fan-in beyond the ring, and B1's at T = 1 (see the
+// header).  THR null: the scalar thr_scalar.
 __global__ void __launch_bounds__(THREADS)
 fused_lif_gemm_int_tblk_kernel(const int8_t* __restrict__ S,
                                const int8_t* __restrict__ W,
@@ -482,19 +495,22 @@ fused_lif_gemm_int_tblk_kernel(const int8_t* __restrict__ S,
                                const int32_t* __restrict__ THR, int thr_scalar,
                                int32_t* __restrict__ V_OUT,
                                int32_t* __restrict__ S_OUT, int T, int M,
-                               int K, int N, int k_pad, Epilogue e,
+                               int K, int N, int k_chunk, Epilogue e,
                                int skip_empty, int vec) {
-  // The block's whole (k_pad, BN) weight slice, loaded once for all T.
+  // The block's (k_chunk, BN) weight slice: loaded once for all T when it
+  // holds all of K, else one chunk of the fan-in at a time.
   extern __shared__ __align__(16) int32_t w_all[];
   __shared__ __align__(16) int8_t s_tile[BM * BK];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t m0 = int64_t(blockIdx.x) * BM;
   const int n0 = blockIdx.y * BN;
-  const int w_stride = k_pad / 4 + 4;
+  const int w_stride = k_chunk / 4 + 4;
+  const int k_pad = round_up(K, BK);
+  const bool resident = k_chunk >= k_pad;
   const int n = n0 + lane;
+  int8_t* w_bytes = reinterpret_cast<int8_t*>(w_all);
 
-  load_weights(W, K, N, 0, k_pad, n0, reinterpret_cast<int8_t*>(w_all),
-               w_stride);
+  if (resident) load_weights(W, K, N, 0, k_pad, n0, w_bytes, w_stride);
 
   // Vmem tile in registers, carried across timesteps.
   int v[ROWS];
@@ -512,11 +528,17 @@ fused_lif_gemm_int_tblk_kernel(const int8_t* __restrict__ S,
     int acc[ROWS];
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) acc[i] = 0;
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      const int any = load_spike_tile(St, M, K, m0, k0, s_tile, vec);
-      if (__syncthreads_or(any) || !skip_empty)
-        mac_tile(s_tile, w_all + k0 / 4, w_stride, acc);
-      __syncthreads();
+    for (int kc = 0; kc < K; kc += k_chunk) {
+      // A chunk's slice: the previous chunk's last barrier has passed, and
+      // the vote below is the barrier that publishes it.
+      if (!resident)
+        load_weights(W, K, N, kc, min(k_chunk, k_pad - kc), n0, w_bytes, w_stride);
+      for (int k0 = kc; k0 < min(K, kc + k_chunk); k0 += BK) {
+        const int any = load_spike_tile(St, M, K, m0, k0, s_tile, vec);
+        if (__syncthreads_or(any) || !skip_empty)
+          mac_tile(s_tile, w_all + (k0 - kc) / 4, w_stride, acc);
+        __syncthreads();
+      }
     }
     if (n < N) {
 #pragma unroll
@@ -543,10 +565,39 @@ fused_lif_gemm_int_tblk_kernel(const int8_t* __restrict__ S,
 // Spikes arrive as the float32 im2col matrix of the training-mode forward.
 //
 // What bounds it on this card: bytes.  Float spikes are four bytes per
-// (m, k): at the optical-flow middle shape the spike matrix alone is 255 MB
-// against ~4 GFLOP if every product were taken, ~12 flop per byte, below
-// the ~20 flop per byte where the CUDA cores' fp32 rate (67 TFLOP/s) would
-// become the limit.  So the design reads each spike once, as B1 does: a
+// (m, k): at the gesture conv shape (16384, 144, 16) they are 9.4 MB of the
+// 12.6 MB moved (3.8 us at 3.35 TB/s), at flow-middle 255 MB.
+//
+// The ring kernel (lif_gemm_f32_tc_kernel) is B1's design in fp32:
+//   * a persistent grid of 8-warp blocks walks 64-row M tiles; each block
+//     keeps its (K, <= 32) fp32 weight slab in shared memory, in W's own
+//     layout when N <= 16 (one bulk copy, issued ahead of the first
+//     tile's; see F32Layout);
+//   * a tile's spikes (64 x K x 4 bytes, one contiguous range) and, when
+//     one slab covers N, its Vmem (64 x N x 4 bytes) arrive by 1-D bulk
+//     copies into a ring of 2 to 4 stages (tc_ring.cuh's mbarriers), so up
+//     to stages - 1 later tiles are in flight while one is multiplied.  A
+//     block's second tile is requested only once its first has landed:
+//     requested together, every block's first tiles would land together,
+//     at the end of the whole transfer;
+//   * products on the tensor cores, mma.sync m16n8k8 TF32: a warp owns 16
+//     rows of the tile over half of the fan-in, and NT n8 tiles cover the
+//     slab (N = 16: two, no lane on padding); the two halves meet in shared
+//     memory before the epilogue.  0/1 spikes are exact in TF32; each
+//     weight is split into w_hi = tf32(w) and w_lo = tf32(w - w_hi), and
+//     both products are summed in fp32 (w - w_hi - w_lo is below
+//     2^-22 |w|);
+//   * the epilogue on the accumulator fragment, with the same roundings as
+//     the plain version; v' and s written once, 8-byte stores;
+//   * skip_empty has no effect, as in B1.
+// A fan-in whose two ring stages do not fit (K above 320 at N = 32) takes
+// the tile loop below (fused_lif_gemm_f32_kernel, the first design), picked
+// by the wrapper's plan (f32_plan).
+//
+// The tile loop: at flow-middle the spike matrix is ~12 flop per byte if
+// every product were taken, below the ~20 flop per byte where the CUDA
+// cores' fp32 rate (67 TFLOP/s) would become the limit.  So the design
+// reads each spike once, as B1 does: a
 // block owns a (BM, BN) output tile, stages (BM, FBK) spike tiles and
 // (FBK, BN) weight tiles in shared memory, and keeps ROWS fp32
 // accumulators per thread in registers.  Spike rows are read as float4
@@ -701,6 +752,261 @@ fused_lif_gemm_f32_kernel(const float* __restrict__ S,
   }
 }
 
+// The ring kernel's shared memory: the fp32 weight slab, one stage's spike
+// tile (64 x K floats plus 32 bytes
+// that ldmatrix reads past row 63 and discards) and Vmem tile (one slab
+// covers N).  The slab, for N <= 16 (NT <= 2), is W itself, K padded to 8
+// rows of N floats, brought by one bulk copy; for wider N it is n-major,
+// 32 rows of K padded to 32 plus 4 floats (B-fragment loads of 8 rows x 4
+// lanes hit 32 banks), loaded by the threads.  The wrapper mirrors it
+// (kernels/fused_lif_gemm.py).  (Rows
+// padded against ldmatrix's bank conflicts took one bulk copy per row, and
+// issuing 64 of them stalled the issuing warp by microseconds.)
+// `wcopy` is N <= 16; the kernel passes it as a constant (its NT <= 2), so
+// that no field costs a run-time select.
+struct F32Layout {
+  int w_stride, w_bytes, s_bytes, v_bytes;
+  __host__ __device__ F32Layout(int K, int N, bool wcopy)
+      : w_stride(wcopy ? N : round_up(K, 32) + 4),
+        w_bytes(round_up((wcopy ? round_up(K, 8) : TC_NB) * w_stride * 4, 128)),
+        s_bytes(round_up(TC_BM * K * 4 + 32, 128)),
+        v_bytes(N <= TC_NB ? round_up(TC_BM * N * 4, 128) : 0) {}
+};
+
+constexpr int F32_MAX_STAGES = 4;
+constexpr int F32_THREADS = 256;
+constexpr int F32_RED_BYTES = 4 * 32 * 16 * 4;  // the upper warps' sums (NT <= 4)
+
+inline int f32_smem(int K, int N, int stages) {
+  const F32Layout lay(K, N, N <= 16);
+  return TC_BARRIER_BYTES + lay.w_bytes + F32_RED_BYTES +
+         stages * (lay.s_bytes + lay.v_bytes);
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// c += A (16x8 tf32, row) x B (8x8 tf32, col), fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float neuron_f32(float acc, float v, float thr,
+                                            float leak, int soft_reset, float& s) {
+  if (leak != 1.0f) v = __fmul_rn(v, leak);
+  v = __fadd_rn(v, acc);
+  s = v >= thr ? 1.0f : 0.0f;
+  return soft_reset ? __fsub_rn(v, __fmul_rn(s, thr)) : __fmul_rn(v, __fsub_rn(1.0f, s));
+}
+
+// Block (x, y) walks M tiles x, x + gridDim.x, ... for channels
+// [32y, 32y + 32).  NT n8 tiles cover the slab; LDSM: K % 4 == 0 (16-byte
+// spike rows: ldmatrix reads the A fragments).  Eight warps: warp w takes
+// rows 16 (w % 4) of the tile over half of the fan-in (w / 4); the upper
+// half's sums reach the lower warps through shared memory, which run the
+// epilogue.
+template <int NT, bool LDSM>
+__global__ void __launch_bounds__(F32_THREADS)
+lif_gemm_f32_tc_kernel(const float* __restrict__ S, const float* __restrict__ W,
+                       const float* __restrict__ V, float* __restrict__ V_OUT,
+                       float* __restrict__ S_OUT, int M, int K, int N, float thr,
+                       float leak, int soft_reset, int stages) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr bool WCOPY = NT <= 2;  // N <= 16: the slab is W itself
+  const F32Layout lay(K, N, WCOPY);
+  const int stage_bytes = lay.s_bytes + lay.v_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  float* wsm = reinterpret_cast<float*>(smem + TC_BARRIER_BYTES);
+  float* red = reinterpret_cast<float*>(smem + TC_BARRIER_BYTES + lay.w_bytes);
+  uint8_t* ring = smem + TC_BARRIER_BYTES + lay.w_bytes + F32_RED_BYTES;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.y * TC_NB, nb = min(TC_NB, N - n0);
+  const bool vpre = N <= TC_NB;
+  const int k_pad = round_up(K, 8), k_half = k_pad / 16 * 8;
+  const int k_lo = warp < 4 ? 0 : k_half, k_hi = warp < 4 ? k_half : k_pad;
+  const int tiles = (M + TC_BM - 1) / TC_BM;
+  // Thread 0: start the copies of tile `tile` into stage `s`.
+  auto issue = [&](int tile, int s) {
+    const int64_t m0 = int64_t(tile) * TC_BM;
+    const uint32_t rows = tile_rows(M, tile);
+    uint8_t* st = ring + s * stage_bytes;
+    issue_spans(&full[s],
+                Span{st, reinterpret_cast<const uint8_t*>(S + m0 * K), rows * K * 4},
+                Span{st + lay.s_bytes, reinterpret_cast<const uint8_t*>(V + m0 * N),
+                     vpre ? rows * N * 4 : 0u});
+  };
+  // The weight slab.  N <= 16: wsm[k * N + n] = W[k, n], thread 0 copies W
+  // in bulk (counted on wbar) ahead of tile 0, the threads zero rows K to
+  // K padded to 8.  Wider N: wsm[n * w_stride + k] = W[k, n0 + n], zero
+  // past K and past the slab's channels, eight loads in flight per thread.
+  uint64_t* wbar = full + F32_MAX_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    mbar_init(wbar, 1);
+    mbar_init_fence();
+    if (WCOPY)
+      issue_spans(wbar, Span{reinterpret_cast<uint8_t*>(wsm),
+                             reinterpret_cast<const uint8_t*>(W), uint32_t(K * N * 4)},
+                  Span{nullptr, nullptr, 0u});
+  }
+  if constexpr (WCOPY) {
+    for (int i = K * N + threadIdx.x; i < k_pad * N; i += F32_THREADS) wsm[i] = 0.f;
+  } else {
+    constexpr int NP = NT * 8;
+    const int wtotal = lay.w_stride * NP;
+    for (int base = threadIdx.x; base < wtotal; base += F32_THREADS * 8) {
+      float val[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int idx = base + u * F32_THREADS, k = idx / NP, n = idx % NP;
+        val[u] = (idx < wtotal && k < K && n < nb) ? W[int64_t(k) * N + n0 + n] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int idx = base + u * F32_THREADS;
+        if (idx < wtotal) wsm[(idx % NP) * lay.w_stride + idx / NP] = val[u];
+      }
+    }
+  }
+  __syncthreads();  // the barriers, the zeros, the loaded slab
+
+  // The block's tile q goes to stage q % stages: tile 0 first, tile 1 once
+  // tile 0 has landed, then each stage refilled as it frees.
+  int issued = 0;
+  auto top_up = [&](int last) {
+    for (; issued <= last; ++issued) {
+      const int next = blockIdx.x + issued * gridDim.x;
+      if (next >= tiles) break;
+      if (threadIdx.x == 0) {
+        fence_proxy_async();
+        issue(next, issued % stages);
+      }
+    }
+  };
+  top_up(0);
+  if (WCOPY) mbar_wait(wbar, 0);
+
+  const int r0 = (warp & 3) * 16;
+  for (int it = 0, tile = blockIdx.x; tile < tiles; ++it, tile += gridDim.x) {
+    const int s = it % stages;
+    mbar_wait(&full[s], (it / stages) & 1);
+    if (it == 0) top_up(1);
+    const uint8_t* st = ring + s * stage_bytes;
+    const float* sf = reinterpret_cast<const float*>(st);
+
+    // Two accumulators per n8 tile: the w_hi products and the w_lo ones,
+    // two independent chains of mma.sync.
+    float acc[NT][4], lo[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = lo[j][i] = 0.f;
+    for (int k0 = k_lo; k0 < k_hi; k0 += 8) {
+      // 0/1 spikes: their fp32 bits are exact TF32.  Columns past K read
+      // zero (the stage past the last row holds stale or unset bytes).
+      uint32_t a[4];
+      if constexpr (LDSM) {  // K % 4 == 0: columns k0+4.. lie past K or not at all
+        ldmatrix_x4(a, sf + (r0 + (lane & 15)) * K + k0 + (lane >> 4) * 4);
+        if (k0 + 4 >= K) a[2] = a[3] = 0u;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = k0 + t + (q >> 1) * 4;
+          a[q] = k < K ? __float_as_uint(sf[(r0 + g + (q & 1) * 8) * K + k]) : 0u;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float w0, w1;
+        if constexpr (WCOPY) {  // W itself: N columns, zero past them
+          const bool live = j * 8 + g < N;
+          w0 = live ? wsm[(k0 + t) * N + j * 8 + g] : 0.f;
+          w1 = live ? wsm[(k0 + t + 4) * N + j * 8 + g] : 0.f;
+        } else {
+          const float* wp = wsm + (j * 8 + g) * lay.w_stride + k0 + t;
+          w0 = wp[0];
+          w1 = wp[4];
+        }
+        uint32_t h0, l0, h1, l1;
+        split_tf32(w0, h0, l0);
+        split_tf32(w1, h1, l1);
+        mma_tf32(lo[j], a, l0, l1);
+        mma_tf32(acc[j], a, h0, h1);
+      }
+    }
+    float* rw = red + ((warp & 3) * 32 + lane) * (4 * NT);
+    if (warp >= 4) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) rw[4 * j + i] = acc[j][i] + lo[j][i];
+    }
+    __syncthreads();  // the upper half's sums are in `red`
+
+    // The neuron program on the fragment: rows g and g + 8 of the warp's
+    // 16, columns 8j + 2t and 8j + 2t + 1.
+    if (warp < 4) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = (acc[j][i] + lo[j][i]) + rw[4 * j + i];
+      const int64_t m0 = int64_t(tile) * TC_BM;
+      const float* vs = reinterpret_cast<const float*>(st + lay.s_bytes);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + g + 8 * h;
+        const int64_t m = m0 + r;
+        if (m >= M) continue;
+        const float* vrow = vpre ? vs + r * N : V + m * N;
+        float* vo = V_OUT + m * N;
+        float* so = S_OUT + m * N;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int n = n0 + j * 8 + t * 2;
+          if (n >= N) continue;
+          if ((N & 1) == 0) {  // n + 1 < N, and 8-byte aligned
+            const float2 v2 = *reinterpret_cast<const float2*>(vrow + n);
+            float s0, s1;
+            const float v0 = neuron_f32(acc[j][2 * h], v2.x, thr, leak, soft_reset, s0);
+            const float v1 = neuron_f32(acc[j][2 * h + 1], v2.y, thr, leak, soft_reset, s1);
+            *reinterpret_cast<float2*>(vo + n) = make_float2(v0, v1);
+            *reinterpret_cast<float2*>(so + n) = make_float2(s0, s1);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              if (n + c < N) {
+                float sp;
+                vo[n + c] = neuron_f32(acc[j][2 * h + c], vrow[n + c], thr, leak,
+                                       soft_reset, sp);
+                so[n + c] = sp;
+              }
+          }
+        }
+      }
+    }
+
+    __syncthreads();  // every warp is done with stage s and `red`
+    top_up(it + stages);
+  }
+}
+
+using F32Kernel = void (*)(const float*, const float*, const float*, float*,
+                           float*, int, int, int, float, float, int, int);
+
+template <int NT>
+F32Kernel f32_kernel(bool ldsm) {
+  return ldsm ? lif_gemm_f32_tc_kernel<NT, true> : lif_gemm_f32_tc_kernel<NT, false>;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -746,20 +1052,21 @@ extern "C" int spidr_fused_lif_gemm_int(const void* s, const void* w,
 }
 
 // Dynamic shared memory of B2's ring kernel for fan-in K, N channels and
-// `stages` stages, and of its tile loop for fan-in K (the weight slice; the
-// kernel adds a 4 KB static spike tile).  The wrapper's plan mirrors both.
+// `stages` stages, and of its tile loop for fan-in K (the weight slice of
+// tile_chunk(K) rows; the kernel adds a 4 KB static spike tile).  The
+// wrappers' plans mirror both.
 extern "C" int spidr_fused_lif_gemm_int_tblk_smem(int K, int N, int stages) {
   return tblk_smem(K, N, stages);
 }
 
 extern "C" int spidr_fused_lif_gemm_int_tblk_tile_smem(int K) {
-  const int k_pad = (K + BK - 1) / BK * BK;
-  return BN * (k_pad / 4 + 4) * int(sizeof(int32_t));
+  return BN * (tile_chunk(K) / 4 + 4) * int(sizeof(int32_t));
 }
 
 // route 1: the ring kernel on grid_x blocks per slab with `stages` stages
-// (s and v 16-byte aligned); route 0: the tile loop (grid_x, stages
-// unused).  thr: (N,) int32, or null for the scalar thr_scalar.
+// (s and v 16-byte aligned); route 0: the tile loop, any fan-in (grid_x,
+// stages unused; B1 beyond its ring launches it with T = 1).  thr: (N,)
+// int32, or null for the scalar thr_scalar.
 extern "C" int spidr_fused_lif_gemm_int_tblk(const void* s, const void* w,
                                              const void* v, const void* thr,
                                              int thr_scalar, void* v_out,
@@ -794,7 +1101,6 @@ extern "C" int spidr_fused_lif_gemm_int_tblk(const void* s, const void* w,
         T, M, K, N, e, stages);
     return int(cudaGetLastError());
   }
-  const int k_pad = (K + BK - 1) / BK * BK;
   const int smem = spidr_fused_lif_gemm_int_tblk_tile_smem(K);
   // Static and dynamic shared memory together above 48 KB need the opt-in.
   if (smem + BM * BK > 48 * 1024) {
@@ -809,16 +1115,47 @@ extern "C" int spidr_fused_lif_gemm_int_tblk(const void* s, const void* w,
       static_cast<const int8_t*>(s), static_cast<const int8_t*>(w),
       static_cast<const int32_t*>(v), static_cast<const int32_t*>(thr),
       thr_scalar, static_cast<int32_t*>(v_out), static_cast<int32_t*>(s_out), T,
-      M, K, N, k_pad, e, skip_empty, vec);
+      M, K, N, tile_chunk(K), e, skip_empty, vec);
   return int(cudaGetLastError());
 }
 
+// Dynamic shared memory of B3's ring kernel for fan-in K, N channels and
+// `stages` stages (the wrapper's plan mirrors it).
+extern "C" int spidr_fused_lif_gemm_f32_smem(int K, int N, int stages) {
+  return f32_smem(K, N, stages);
+}
+
+// route 1: the ring kernel on grid_x blocks per slab with `stages` stages
+// (s and v 16-byte aligned; skip_empty has no effect); route 0: the tile
+// loop (grid_x, stages unused).
 extern "C" int spidr_fused_lif_gemm_f32(const void* s, const void* w,
                                         const void* v, void* v_out,
                                         void* s_out, int M, int K, int N,
                                         float thr, float leak, int soft_reset,
-                                        int skip_empty, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return int(cudaErrorInvalidValue);
+                                        int skip_empty, int route, int grid_x,
+                                        int stages, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || route < 0 || route > 1)
+    return int(cudaErrorInvalidValue);
+  if (route == 1) {
+    const int smem = f32_smem(K, N, stages);
+    if (grid_x <= 0 || stages < 2 || stages > F32_MAX_STAGES || smem > TC_SMEM_MAX ||
+        (reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+      return int(cudaErrorInvalidValue);
+    const int nt = N >= TC_NB ? 4 : (N + 7) / 8;
+    const bool ldsm = K % 4 == 0;
+    const F32Kernel kernels[4] = {f32_kernel<1>(ldsm), f32_kernel<2>(ldsm),
+                                  f32_kernel<3>(ldsm), f32_kernel<4>(ldsm)};
+    const F32Kernel kern = kernels[nt - 1];
+    static bool smem_set[8] = {};
+    const cudaError_t err = allow_smem(kern, smem_set[2 * (nt - 1) + ldsm]);
+    if (err != cudaSuccess) return int(err);
+    kern<<<dim3(grid_x, (N + TC_NB - 1) / TC_NB), F32_THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(s), static_cast<const float*>(w),
+        static_cast<const float*>(v), static_cast<float*>(v_out),
+        static_cast<float*>(s_out), M, K, N, thr, leak, soft_reset, stages);
+    return int(cudaGetLastError());
+  }
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
   fused_lif_gemm_f32_kernel<<<grid, THREADS, 0,
                               static_cast<cudaStream_t>(stream)>>>(

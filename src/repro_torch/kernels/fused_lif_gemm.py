@@ -26,11 +26,12 @@ used: the CUDA tiles are fixed.  ``fused_lif_gemm_int`` and
 grid with a ring of bulk-copied spike tiles (``csrc/tc_ring.cuh``), sized
 by :func:`tc_plan` and :func:`tblk_plan`; a scalar threshold reaches both
 as a kernel argument.  On the ring ``skip_empty`` is accepted and has no
-effect (the result is the same either way).  A T_blk fan-in too large for
-the ring's two stages takes the first design's tile loop, which skips
-empty spike tiles by a block-wide vote; the plan picks the route by shape,
-so the tblk wrapper needs no bitmap prologue.  The float kernel skips by
-the same vote.
+effect (the result is the same either way).  A fan-in too large for the
+ring's two stages takes the first design's tile loop (B1 at T = 1), which
+skips empty spike tiles by a block-wide vote and walks a fan-in beyond its
+shared memory in chunks; the plans pick the route by shape, so no fan-in
+is refused and the tblk wrapper needs no bitmap prologue.  The float
+kernel skips by the same vote.
 """
 from __future__ import annotations
 
@@ -57,10 +58,13 @@ __all__ = [
     "fused_lif_gemm",
     "fused_lif_gemm_int",
     "fused_lif_gemm_int_tblk",
+    "f32_plan",
+    "f32_smem",
     "tblk_plan",
     "tblk_smem",
     "tc_plan",
     "tc_smem",
+    "tile_chunk",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -74,18 +78,28 @@ _SIGNATURES = {
     "spidr_fused_lif_gemm_int_tblk": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 12 + [_P],
     "spidr_fused_lif_gemm_int_tblk_smem": [_I] * 3,
     "spidr_fused_lif_gemm_int_tblk_tile_smem": [_I],
-    # s, w, v, v_out, s_out, M, K, N, thr, leak, soft, skip, stream
-    "spidr_fused_lif_gemm_f32": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _I, _P],
+    # s, w, v, v_out, s_out, M, K, N, thr, leak, soft, skip, route, grid_x,
+    # stages, stream
+    "spidr_fused_lif_gemm_f32": [_P] * 5 + [_I] * 3 + [_F, _F] + [_I] * 5 + [_P],
+    "spidr_fused_lif_gemm_f32_smem": [_I] * 3,
 }
 # B1's ring (csrc/fused_lif_gemm.cu lif_gemm_tc_kernel): 2 to 4 stages,
 # each the tile's spikes (32 bytes of slack) and, when one slab covers N,
 # its Vmem.  B2's (lif_gemm_tblk_tc_kernel): 2 to 8 stages of spikes only
 # (48 bytes of slack: a plane may start off 16 bytes), beside one Vmem
-# buffer.  B2's tile loop (fused_lif_gemm_int_tblk_kernel) holds the
-# (K padded to 64, 32) weight slice beside a 4 KB spike tile.
+# buffer.  The tile loop (fused_lif_gemm_int_tblk_kernel) holds a
+# (K padded to 64, 32) weight slice beside a 4 KB spike tile, or, past
+# _TILE_K_MAX fan-in rows, one chunk of that many rows at a time.
 _TC_MAX_STAGES, _TC_SLACK = 4, 32
 _TBLK_MAX_STAGES, _TBLK_SLACK = 8, 48
 _TILE_STATIC = 4096
+_TILE_K_MAX = ((_ring.SMEM_LIMIT - _TILE_STATIC) // (_ring.NB * 4) - 4) * 4 // 64 * 64
+# B3's ring (lif_gemm_f32_tc_kernel): 2 to 4 stages, each the tile's fp32
+# spikes (32 bytes of slack) and, when one slab covers N, its fp32 Vmem,
+# beside the fp32 weight slab: W itself when N <= 16 (K padded to 8 rows of
+# N floats), else 32 channel rows of K padded to 32 plus 4 floats.
+_F32_MAX_STAGES, _F32_SLACK = 4, 32
+_F32_RED = 4 * 32 * 16 * 4  # the upper warps' partial sums, before the epilogue
 
 
 def tc_smem(k: int, n: int, stages: int) -> int:
@@ -96,18 +110,17 @@ def tc_smem(k: int, n: int, stages: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)  # per launch, from a handful of layer shapes
-def tc_plan(m: int, k: int, n: int, sms: int) -> tuple:
-    """``(grid_x, stages)`` of B1 for ``(m, k) x (k, n)`` on ``sms`` SMs
-    (``_ring.ring_grid``).  A fan-in too large for 2 stages on one block
-    raises."""
+def tc_plan(m: int, k: int, n: int, sms: int) -> _ring.Plan:
+    """B1's route for ``(m, k) x (k, n)`` on ``sms`` SMs: the ring
+    (``_ring.ring_grid``, 2 to 4 stages) wherever two of its stages fit
+    beside the weight slab, else B2's tile loop at T = 1 (one block per M
+    tile), which takes any fan-in."""
     fixed = _ring.BARRIER_BYTES + _ring.weight_bytes(k)
     stage = _ring.spike_bytes(k, _TC_SLACK) + _ring.tile_bytes(n)
-    plan = _ring.ring_grid(m, k, n, fixed, stage, _TC_MAX_STAGES, sms)
-    if plan is None:
-        raise ValueError(f"fused_lif_gemm_int: fan-in K={k} needs "
-                         f"{tc_smem(k, n, 2)} bytes of shared memory for two "
-                         f"stages, more than a Hopper block's {_ring.SMEM_LIMIT}")
-    return plan
+    ring = _ring.ring_grid(m, k, n, fixed, stage, _TC_MAX_STAGES, sms)
+    if ring is not None:
+        return _ring.Plan("ring", *ring)
+    return _ring.Plan("tile", -(-m // _ring.BM), 0)
 
 
 def tblk_smem(k: int, n: int, stages: int) -> int:
@@ -117,10 +130,17 @@ def tblk_smem(k: int, n: int, stages: int) -> int:
             + stages * _ring.spike_bytes(k, _TBLK_SLACK))
 
 
+def tile_chunk(k: int) -> int:
+    """Fan-in rows of the tile loop's weight slice: all of K padded to 64,
+    or ``_TILE_K_MAX`` (7,104) when K is larger (the fan-in is walked in
+    chunks)."""
+    return min(_ring.round_up(k, 64), _TILE_K_MAX)
+
+
 def tblk_tile_smem(k: int) -> int:
-    """Shared memory of B2's tile loop: the (K padded to 64, 32) weight
-    slice as words, 4 + K/4 per channel, beside the 4 KB spike tile."""
-    return _ring.NB * (_ring.round_up(k, 64) // 4 + 4) * 4 + _TILE_STATIC
+    """Shared memory of the tile loop: the (``tile_chunk(k)``, 32) weight
+    slice as words, 4 + rows/4 per channel, beside the 4 KB spike tile."""
+    return _ring.NB * (tile_chunk(k) // 4 + 4) * 4 + _TILE_STATIC
 
 
 @functools.lru_cache(maxsize=256)
@@ -129,19 +149,40 @@ def tblk_plan(m: int, k: int, n: int, sms: int) -> _ring.Plan:
 
     The ring (``_ring.ring_grid``, 2 to 8 stages) wherever two of its
     stages fit beside the weight slab and the Vmem buffer; the tile loop
-    for a larger fan-in, up to its own limit (K ~7,000 at N = 32), above
-    which it raises.  T does not enter: the ring holds one spike tile per
-    stage whatever T is.
+    (one block per M tile, any fan-in) for a larger one.  T does not
+    enter: the ring holds one spike tile per stage whatever T is.
     """
     fixed = _ring.BARRIER_BYTES + _ring.weight_bytes(k) + _ring.tile_bytes(n)
     ring = _ring.ring_grid(m, k, n, fixed, _ring.spike_bytes(k, _TBLK_SLACK),
                            _TBLK_MAX_STAGES, sms)
     if ring is not None:
         return _ring.Plan("ring", *ring)
-    if tblk_tile_smem(k) > _ring.SMEM_LIMIT:
-        raise ValueError(
-            f"fused_lif_gemm_int_tblk: fan-in K={k} needs {tblk_tile_smem(k)} "
-            f"bytes of shared memory, more than a Hopper block's {_ring.SMEM_LIMIT}")
+    return _ring.Plan("tile", -(-m // _ring.BM), 0)
+
+
+def f32_smem(k: int, n: int, stages: int) -> int:
+    """Shared memory of B3's ring kernel: barriers, the fp32 weight slab,
+    8 KB for the partial sums of the fan-in's upper half, then ``stages``
+    x (fp32 spike tile and, when one slab covers N, the fp32 Vmem tile)."""
+    if n <= 16:  # W itself, K padded to 8 rows of N
+        w = _ring.round_up(_ring.round_up(k, 8) * n * 4, 128)
+    else:        # n-major, 32 rows of K padded to 32 plus 4
+        w = _ring.round_up(_ring.NB * (_ring.round_up(k, 32) + 4) * 4, 128)
+    stage = _ring.spike_bytes(4 * k, _F32_SLACK) + _ring.tile_bytes(n)
+    return _ring.BARRIER_BYTES + w + _F32_RED + stages * stage
+
+
+@functools.lru_cache(maxsize=256)
+def f32_plan(m: int, k: int, n: int, sms: int) -> _ring.Plan:
+    """B3's route for ``(m, k) x (k, n)`` on ``sms`` SMs: the ring
+    (``_ring.ring_grid``, 2 to 4 stages) wherever two of its stages fit
+    beside the fp32 weight slab (K up to 320 at N = 32), else the first
+    design's tile loop (one block per 64 x 32 output tile), any fan-in."""
+    fixed = f32_smem(k, n, 0)
+    ring = _ring.ring_grid(m, k, n, fixed, f32_smem(k, n, 1) - fixed,
+                           _F32_MAX_STAGES, sms)
+    if ring is not None:
+        return _ring.Plan("ring", *ring)
     return _ring.Plan("tile", -(-m // _ring.BM), 0)
 
 
@@ -208,15 +249,22 @@ def fused_lif_gemm_int(
         raise ValueError("fused_lif_gemm_int needs a fan-in K > 0")
     if m == 0 or n == 0:
         return v_out, s_out
-    grid_x, stages = tc_plan(m, k, n, sm_count(dev))
-    spikes, v = _ring.aligned16(spikes), _ring.aligned16(v)
+    plan = tc_plan(m, k, n, sm_count(dev))
     v_min, v_max = _vmem_range(vmem_bits)
     with torch.cuda.device(dev):
-        err = _fn("spidr_fused_lif_gemm_int")(
-            spikes.data_ptr(), weights.data_ptr(), v.data_ptr(),
-            None if thr is None else thr.data_ptr(), thr_scalar, v_out.data_ptr(),
-            s_out.data_ptr(), m, k, n, int(leak_shift), int(bool(soft_reset)),
-            v_min, v_max, grid_x, stages, _stream(dev))
+        if plan.route == "ring":
+            spikes, v = _ring.aligned16(spikes), _ring.aligned16(v)
+            err = _fn("spidr_fused_lif_gemm_int")(
+                spikes.data_ptr(), weights.data_ptr(), v.data_ptr(),
+                None if thr is None else thr.data_ptr(), thr_scalar, v_out.data_ptr(),
+                s_out.data_ptr(), m, k, n, int(leak_shift), int(bool(soft_reset)),
+                v_min, v_max, plan.grid_x, plan.stages, _stream(dev))
+        else:  # B2's tile loop at T = 1: (m, k) and (m, n) are its (1, m, .)
+            err = _fn("spidr_fused_lif_gemm_int_tblk")(
+                spikes.data_ptr(), weights.data_ptr(), v.data_ptr(),
+                None if thr is None else thr.data_ptr(), thr_scalar, v_out.data_ptr(),
+                s_out.data_ptr(), 1, m, k, n, int(leak_shift), int(bool(soft_reset)),
+                v_min, v_max, int(bool(skip_empty)), 0, 0, 0, _stream(dev))
     raise_on(err, "fused_lif_gemm_int")
     count_launch("fused_lif_gemm_int")
     return v_out, s_out
@@ -304,11 +352,15 @@ def fused_lif_gemm(
         raise ValueError("fused_lif_gemm needs a fan-in K > 0")
     if m == 0 or n == 0:
         return v_out, s_out
+    plan = f32_plan(m, k, n, sm_count(dev))
+    if plan.route == "ring":  # bulk copies need 16-byte aligned sources
+        spikes, weights, v = (_ring.aligned16(x) for x in (spikes, weights, v))
     with torch.cuda.device(dev):
         err = _fn("spidr_fused_lif_gemm_f32")(
             spikes.data_ptr(), weights.data_ptr(), v.data_ptr(), v_out.data_ptr(),
             s_out.data_ptr(), m, k, n, float(threshold), float(leak),
-            int(bool(soft_reset)), int(bool(skip_empty)), _stream(dev))
+            int(bool(soft_reset)), int(bool(skip_empty)), int(plan.route == "ring"),
+            plan.grid_x, plan.stages, _stream(dev))
     raise_on(err, "fused_lif_gemm")
     count_launch("fused_lif_gemm")
     return v_out, s_out

@@ -35,6 +35,7 @@ __all__ = [
     "spike_tile_bitmap",
     "unpack_int4",
     "wkv_chunk_ref",
+    "wkv_sequence_factored",
     "wkv_sequence_ref",
 ]
 
@@ -240,3 +241,76 @@ def wkv_chunk_ref(r, k, v, lw, u, s0):
     y, s1 = wkv_sequence_ref(*(t.reshape(bh, c, 1, n) for t in (r, k, v, lw)),
                              u.reshape(bh, 1, n), s0.reshape(bh, 1, n, n), c)
     return y.reshape(bh, c, n), s1.reshape(bh, n, n)
+
+
+def wkv_sequence_factored(r, k, v, lw, u, s0, chunk: int = 32, cluster: int = 1,
+                          per_block: int = 1):
+    """:func:`wkv_sequence_ref` computed as the CUDA kernel computes it, in
+    plain PyTorch: the tests hold it against the JAX kernel where the
+    kernel itself cannot run.
+
+    Every chunk's intra-chunk terms at once: the decay matrix A factored
+    over sub-chunks of 8 tokens (for i after sub-chunk a, whose last
+    lw_incl is R_a: e^{lw_excl_i - lw_incl_j} = e^{lw_excl_i - R_a}
+    e^{R_a - lw_incl_j}, both exponents <= 0; pairs inside one sub-chunk
+    keep the pairwise exponential), k' = k e^{lw_incl_C - lw_incl}, and
+    dS = k'^T v.  Then, as the kernel's cluster of ``cluster``
+    blocks of ``per_block`` chunks does, window by window: each block
+    composes its chunks into (T, D), the state entering each block is the
+    window's start state composed with its predecessors' (T, D) in order,
+    and y adds r' D S_in.
+    """
+    b, s, h, n = r.shape
+    nc, sub = s // chunk, min(8, chunk)
+    nsub = chunk // sub
+
+    def by_chunk(x):  # (B,S,H,N) -> (B,H,nc,C,N)
+        return x.reshape(b, nc, chunk, h, n).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, lwc = map(by_chunk, (r, k, v, lw))
+    lwi = torch.cumsum(lwc, dim=3)
+    lwe = lwi - lwc
+    ends = lwi[..., sub - 1::sub, :]                          # R_a: (B,H,nc,nsub,N)
+    last = lwi[..., -1:, :]
+    rp = rc * torch.exp(lwe)
+    q = kc * torch.exp(ends.repeat_interleave(sub, dim=3) - lwi)
+    kp = kc * torch.exp(last - lwi)
+    d = torch.exp(last)                                       # (B,H,nc,1,N)
+
+    i = torch.arange(chunk, device=r.device)
+    same = (i[:, None] // sub == i[None, :] // sub) & (i[None, :] < i[:, None])
+    expo = lwe[..., :, None, :] - lwi[..., None, :, :]
+    pair = torch.exp(torch.where(same[:, :, None], expo, float("-inf")))
+    a = ((rc[..., :, None, :] * kc[..., None, :, :]) * pair).sum(-1)
+    for sa in range(nsub - 1):
+        rows, cols = slice((sa + 1) * sub, chunk), slice(sa * sub, (sa + 1) * sub)
+        p = rc[..., rows, :] * torch.exp(lwe[..., rows, :] - ends[..., sa:sa + 1, :])
+        a[..., rows, cols] = p @ q[..., cols, :].transpose(-1, -2)
+    u4 = torch.broadcast_to(u, (b, h, n))[:, :, None, None, :]
+    a = a + torch.diag_embed((rc * u4 * kc).sum(-1))          # the bonus on A's diagonal
+    y_intra = a @ vc
+    ds = kp.transpose(-1, -2) @ vc                            # (B,H,nc,N,N)
+
+    y = torch.empty_like(rc)
+    state = s0
+    per_window = cluster * per_block
+    for w0 in range(0, nc, per_window):
+        parts = []
+        for blk in range(cluster):
+            first = w0 + blk * per_block
+            t_blk = torch.zeros_like(s0)
+            d_blk = torch.ones_like(d[:, :, 0])
+            owned = []
+            for c in range(first, min(first + per_block, nc)):
+                yc = y_intra[:, :, c]
+                if c > first:
+                    yc = yc + rp[:, :, c] @ t_blk
+                owned.append((c, yc, rp[:, :, c] * d_blk))
+                t_blk = d[:, :, c].transpose(-1, -2) * t_blk + ds[:, :, c]
+                d_blk = d_blk * d[:, :, c]
+            parts.append((owned, t_blk, d_blk))
+        for owned, t_blk, d_blk in parts:
+            for c, yc, rpp in owned:
+                y[:, :, c] = yc + rpp @ state
+            state = d_blk.transpose(-1, -2) * state + t_blk
+    return y.permute(0, 2, 3, 1, 4).reshape(b, s, h, n), state

@@ -3,14 +3,18 @@
     python -m repro_torch.launch.profile --snn optical-flow --batch 2 --t-block 1
     python -m repro_torch.launch.profile --snn gesture --batch 4 --t-block 4
     python -m repro_torch.launch.profile --arch rwkv6-7b --prompt-len 512 --batch 4
+    python -m repro_torch.launch.profile --quickstart
 
 ``--snn``: compiles the paper network at full Table II width (4-bit, fused
 CUDA kernels, random weights from a fixed seed) and profiles one
 ``CompiledSNN.run``.  ``--arch``: builds the LM at full published width
 (random weights from a fixed seed, bfloat16 serving copies) and profiles
 one prefill of ``--prompt-len`` tokens (one request, as the server admits
-them) and one decode step over ``--batch`` slots.  Each workload is warmed
-up, then
+them) and one decode step over ``--batch`` slots.  ``--quickstart``: the
+quickstart's float forward (``run_snn(mode="train")`` on the gesture net
+at 64x64, T=10, batch 4, random weights and events from fixed seeds; one
+fused float kernel launch per weight layer-timestep).  Each workload is
+warmed up, then
 
   * timed ``--repeats`` times on the host clock, each run ending in
     ``torch.cuda.synchronize()`` (no profiler attached);
@@ -20,7 +24,8 @@ up, then
 Prints one JSON object per workload: host ms per run, device ms per run,
 the device's busy share (device ms / host ms) and the kernels that took
 the device time, largest first; for the LM also the share of the wkv
-kernel and of the matrix products.  Needs a CUDA device.
+kernel and of the matrix products, for the float forward the share of
+the fused float kernel (B3).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -135,19 +140,47 @@ def profile_run(snn: str, batch: int, t_block: int, repeats: int,
             "batch": batch, "t_block": t_block, **res}
 
 
+def profile_float_forward(repeats: int, device=None) -> dict:
+    """The quickstart's float forward at full width (gesture net, 64x64,
+    T=10, batch 4)."""
+    from ..core.network import gesture_net, run_snn
+    from ..core.quant import QuantSpec
+
+    dev = _card(device)
+    net = gesture_net()
+    params = [None if p is None else p.to(dev)
+              for p in init_params(torch.Generator().manual_seed(0), net)]
+    events, _ = make_gesture_batch(torch.Generator().manual_seed(1), batch=4,
+                                   timesteps=10, hw=(64, 64), device=dev)
+    with torch.no_grad():
+        res = _measure(lambda: run_snn(params, events, net, QuantSpec(4),
+                                       record_spikes=True), dev, repeats)
+    by_kernel = res.pop("by_kernel")
+    total = sum(us for _, us in by_kernel.values()) or 1.0
+    b3 = [(n, us) for k, (n, us) in by_kernel.items() if "lif_gemm_f32" in k]
+    return {"workload": "float_forward", "net": "gesture", "hw": [64, 64], "T": 10,
+            "batch": 4, **res, "b3_launches": sum(n for n, _ in b3),
+            "b3_ms": sum(us for _, us in b3) / 1e3,
+            "b3_share": sum(us for _, us in b3) / total}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.profile",
                                  description=__doc__.split("\n\n")[0])
     what = ap.add_mutually_exclusive_group(required=True)
     what.add_argument("--snn", choices=["gesture", "optical-flow"])
     what.add_argument("--arch", help="an LM (ported: rwkv6-7b), at full width")
+    what.add_argument("--quickstart", action="store_true",
+                      help="the quickstart's float forward at full width")
     ap.add_argument("--batch", type=int, default=2,
                     help="streams per run (--snn) or decode slots (--arch)")
     ap.add_argument("--t-block", type=int, default=1, dest="t_block")
     ap.add_argument("--prompt-len", type=int, default=512, dest="prompt_len")
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
-    if args.arch is not None:
+    if args.quickstart:
+        print(json.dumps(profile_float_forward(args.repeats)), flush=True)
+    elif args.arch is not None:
         for row in profile_lm(args.arch, args.prompt_len, args.batch, args.repeats):
             print(json.dumps(row), flush=True)
     else:

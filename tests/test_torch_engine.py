@@ -216,3 +216,68 @@ def test_fused_on_card_matches_cpu(cuda_device, net, t_block):
                        _events(net))
     for a, b in zip(dataclasses.astuple(gpu), dataclasses.astuple(cpu)):
         assert_same(a, b)
+
+
+def _wide_fan_in_net(k):
+    """chip_smoke.py's network of fan-in ``k`` (a 1x1 conv at 8x8 into an
+    FC layer): past B1's ring from K = 1,345, past the tile loop's
+    resident weight slice at 7,105."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._wide_fan_in_net(k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,t_block", [(1345, 1), (7105, 1), (7105, 4)])
+def test_wide_fan_in_on_card_matches_torch_backend(cuda_device, k, t_block):
+    """No fan-in is refused on the card: the fused engine (B1 or B2 on the
+    tile loop, K-chunked at 7,105) equals backend="torch" bit for bit."""
+    from repro_torch import spidr
+    from repro_torch.core.network import init_params
+    from repro_torch.kernels import LAUNCHES, fused_lif_gemm as fk
+
+    spec = _wide_fan_in_net(k)
+    assert fk.tc_plan(128, k, 32, 132).route == "tile"
+    params = init_params(torch.Generator().manual_seed(0), spec)
+    ev = (torch.rand((4, 2, 8, 8, k), generator=torch.Generator().manual_seed(1))
+          < 0.1).to(torch.float32).to(cuda_device)
+    want = spidr.compile(spec, params, spidr.DeployTarget(weight_bits=8, backend="torch"),
+                         device=cuda_device).run(ev)
+    name = "fused_lif_gemm_int" if t_block == 1 else "fused_lif_gemm_int_tblk"
+    before = LAUNCHES[name]
+    got = spidr.compile(spec, params, spidr.DeployTarget(
+        weight_bits=8, backend="fused", t_block=t_block), device=cuda_device).run(ev)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] > before
+    assert int(want.spike_counts.sum()) > 0
+    for a, b in ((got.readout, want.readout), (got.spike_counts, want.spike_counts),
+                 (got.input_counts, want.input_counts)):
+        assert_same(a, b)
+
+
+@pytest.mark.parametrize("k", [1345, 7105])
+def test_wide_fan_in_net_runs_on_cpu(k):
+    """The wide fan-in network compiles and runs on the CPU, fused equal to
+    torch, with spikes in both layers (the card's test compares the same)."""
+    from repro_torch import spidr
+    from repro_torch.core.network import init_params
+    from repro_torch.kernels import fused_lif_gemm as fk
+
+    spec = _wide_fan_in_net(k)
+    assert spec.layer_shapes()[0].fan_in == k
+    assert fk.tc_plan(128, k, 32, 132).route == "tile"
+    params = init_params(torch.Generator().manual_seed(0), spec)
+    ev = (torch.rand((4, 2, 8, 8, k), generator=torch.Generator().manual_seed(1))
+          < 0.1).to(torch.float32)
+    want = spidr.compile(spec, params, spidr.DeployTarget(weight_bits=8, backend="torch"),
+                         device="cpu").run(ev)
+    got = spidr.compile(spec, params, spidr.DeployTarget(weight_bits=8, backend="fused",
+                                                         t_block=4), device="cpu").run(ev)
+    assert bool((want.spike_counts.sum(dim=0) > 0).all())
+    for a, b in ((got.readout, want.readout), (got.spike_counts, want.spike_counts)):
+        assert_same(a, b)

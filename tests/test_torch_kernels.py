@@ -144,7 +144,8 @@ def test_tc_plan_geometry(mkn, sms):
     """B1's launch geometry: a persistent grid no larger than the tiles or
     the card, 2-4 ring stages, and shared memory within a block's share."""
     m, k, n = mkn
-    grid_x, stages = fk.tc_plan(m, k, n, sms)
+    route, grid_x, stages = fk.tc_plan(m, k, n, sms)
+    assert route == "ring"
     slabs, tiles = -(-n // 32), -(-m // 64)
     assert 1 <= grid_x <= tiles and 2 <= stages <= 4
     assert grid_x * slabs <= max(slabs, 4 * sms)
@@ -156,15 +157,17 @@ def test_tc_plan_geometry(mkn, sms):
 def test_tc_plan_main_shapes():
     """The flow middle layer: 2 blocks per SM, 3 stages of 64 x 288 spikes
     and 64 x 32 Vmem (26,752 bytes each) beside the 9,728-byte weight slab."""
-    assert fk.tc_plan(221184, 288, 32, 132) == (264, 3)
+    assert fk.tc_plan(221184, 288, 32, 132) == ("ring", 264, 3)
     assert fk.tc_smem(288, 32, 3) == 128 + 9728 + 3 * (18560 + 8192)
     # A slab of channels past 32 reads Vmem from device memory: no Vmem stage.
     assert fk.tc_smem(288, 33, 2) == 128 + 9728 + 2 * 18560
 
 
-def test_tc_plan_rejects_large_fan_in():
-    with pytest.raises(ValueError, match="fan-in K=1500"):
-        fk.tc_plan(1000, 1500, 32, 132)
+def test_tc_plan_routes_large_fan_in_to_the_tile_loop():
+    """A fan-in whose two ring stages do not fit takes B2's tile loop at
+    T = 1, one block per M tile, whatever the card."""
+    assert fk.tc_smem(1500, 32, 2) > 227 * 1024
+    assert fk.tc_plan(1000, 1500, 32, 132) == ("tile", 16, 0)
 
 
 # B2's plan: the main paths' shapes, ragged ones, and fan-ins on both sides
@@ -218,14 +221,38 @@ def test_tblk_plan_route_changes_where_two_stages_stop_fitting(n):
         assert fk.tblk_plan(m, k_max + 1, n, sms).route == "tile"
 
 
-def test_tblk_plan_keeps_the_tile_loops_fan_in():
-    """No fan-in the first design took is refused: the tile loop up to its
-    own limit (~7,000), a clear error above it."""
-    k_top = max(k for k in range(1000, 8000, 64) if fk.tblk_tile_smem(k) <= 227 * 1024)
-    assert k_top >= 6900
+def test_tblk_plan_takes_any_fan_in_on_the_tile_loop():
+    """No fan-in is refused: the tile loop holds the whole weight slice up
+    to K = 7,104 and walks a larger fan-in in chunks of 7,104 rows, its
+    shared memory within a block's share either way."""
+    k_top = max(k for k in range(64, 8001, 64) if fk.tile_chunk(k) == k)
+    assert k_top == 7104 == fk._TILE_K_MAX
     assert fk.tblk_plan(64, k_top, 32, 132).route == "tile"
-    with pytest.raises(ValueError, match="fan-in K=8000"):
-        fk.tblk_plan(64, 8000, 32, 132)
+    assert fk.tblk_plan(64, 8000, 32, 132) == ("tile", 1, 0)
+    assert fk.tile_chunk(8000) == 7104 and fk.tblk_tile_smem(8000) <= 227 * 1024
+
+
+# Fan-ins past each limit: B1's ring (K = 1,345 at N = 32), the tile loop's
+# resident slice (K = 7,105), and beyond.
+WIDE_FAN_INS = [1345, 1500, 7105, 8000]
+
+
+@pytest.mark.parametrize("k", WIDE_FAN_INS)
+@pytest.mark.parametrize("n", [11, 32, 33])
+def test_plans_route_wide_fan_ins_to_the_tile_loop(k, n):
+    """Both integer plans send a fan-in whose two ring stages do not fit to
+    the tile loop (at N = 32 every fan-in here), which keeps the whole
+    slice up to 7,104 rows and chunks it above."""
+    for m in (4, 1000, 221184):
+        for plan, two_stages in ((fk.tc_plan(m, k, n, 132), fk.tc_smem(k, n, 2)),
+                                 (fk.tblk_plan(m, k, n, 132), fk.tblk_smem(k, n, 2))):
+            if two_stages > 227 * 1024:
+                assert plan == ("tile", -(-m // 64), 0)
+            else:
+                assert plan.route == "ring"
+        assert fk.tc_plan(m, k, 32, 132).route == "tile"
+    assert fk.tile_chunk(k) == (7104 if k > 7104 else _ring.round_up(k, 64))
+    assert fk.tblk_tile_smem(k) <= 227 * 1024
 
 
 def test_ring_grid_is_the_shared_search():
@@ -234,7 +261,7 @@ def test_ring_grid_is_the_shared_search():
     k, n = 288, 32
     fixed = 128 + _ring.weight_bytes(k)
     stage = _ring.spike_bytes(k, 32) + _ring.tile_bytes(n)
-    assert fk.tc_plan(221184, k, n, 132) == _ring.ring_grid(221184, k, n, fixed, stage, 4, 132)
+    assert fk.tc_plan(221184, k, n, 132)[1:] == _ring.ring_grid(221184, k, n, fixed, stage, 4, 132)
     assert _ring.ring_grid(10, 5000, 32, fixed, 200000, 8, 132) is None
 
 
@@ -375,3 +402,30 @@ def test_cuda_tblk_thresholds_views_and_launches(cuda_device, k):
     for got in (scalar, vector, view):
         for g, p in zip(got, want):
             assert_same(g, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", WIDE_FAN_INS)
+def test_cuda_wide_fan_in_matches_plain(cuda_device, k):
+    """B1 and B2 past the ring: the tile loop at T = 1 (B1) and T = 3, its
+    fan-in chunked past 7,104, against the plain versions; skip_empty on
+    and off, scalar and per-channel thresholds, each call one launch."""
+    for t in (None, 3):
+        for per_channel, soft, leak in ((False, False, 3), (True, True, 0)):
+            s, w, v, thr = _inputs(130, k, 32, 0.2, 15, per_channel, t=t, seed=k)
+            args = [torch.from_numpy(x) for x in (s, w, v)]
+            thr_t = _thr(thr, "torch")
+            kw = dict(leak_shift=leak, soft_reset=soft, vmem_bits=15)
+            name = "fused_lif_gemm_int" if t is None else "fused_lif_gemm_int_tblk"
+            plain = (ref.fused_lif_gemm_int_ref if t is None
+                     else ref.fused_lif_gemm_int_tblk_ref)(*args, thr_t, **kw)
+            thr_d = thr_t if isinstance(thr_t, int) else thr_t.to(cuda_device)
+            for skip in (True, False):
+                before = fk.LAUNCHES[name]
+                got = getattr(fk, name)(*[x.to(cuda_device) for x in args], thr_d,
+                                        skip_empty=skip, **kw)
+                torch.cuda.synchronize()
+                assert fk.LAUNCHES[name] == before + 1
+                for g, p in zip(got, plain):
+                    assert g.is_cuda
+                    assert_same(g, p)

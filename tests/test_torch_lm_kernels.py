@@ -96,6 +96,79 @@ def test_wkv_chunk_single_chunk_matches_jax(jax_ref):
     _close(s1, s_k, WKV_TOL)
 
 
+# (B, S, H, chunk, N): the served prefill, a 512-token prefill at B=1 and
+# B=4, several windows, a cluster of one block, odd chunk counts, small heads.
+WKV_PLAN_CASES = [(1, 64, 64, 32, 64), (1, 512, 64, 32, 64), (4, 512, 64, 32, 64),
+                  (1, 1024, 64, 32, 64), (1, 32, 64, 32, 64), (1, 96, 64, 32, 64),
+                  (2, 160, 3, 32, 16), (1, 512, 2, 8, 8), (1, 512, 64, 64, 64),
+                  (6, 128, 1, 16, 32)]
+
+
+@pytest.mark.parametrize("case", WKV_PLAN_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("sms", [132, 16])
+def test_wkv_plan(case, sms):
+    """B7's launch plan: a cluster of 1-8 blocks (a power of two) with a
+    chunk for every block and, beyond one block per head, no more blocks
+    than SMs; 1-2 chunks per block per window; windows that cover every
+    chunk once; shared memory within a block's share."""
+    b, s, h, chunk, n = case
+    p = wk.plan(b, s, h, chunk, n, sms)
+    nc = s // chunk
+    assert p.cluster in (1, 2, 4, 8) and p.cluster <= nc
+    assert p.cluster == 1 or b * h * p.cluster <= sms
+    assert p.cluster * 2 > min(8, nc) or b * h * p.cluster * 2 > max(sms, b * h)
+    assert 1 <= p.per_block <= 2 and (p.per_block == 1 or nc > p.cluster)
+    assert (p.windows - 1) * p.cluster * p.per_block < nc <= p.windows * p.cluster * p.per_block
+    assert p.smem == wk.smem_bytes(chunk, n, p.per_block) <= 227 * 1024
+
+
+def test_wkv_plan_main_shapes():
+    """rwkv6-7b on 132 SMs: a served prompt (S=64, C=32), 2 blocks of one
+    chunk per head, 128 blocks at B=1; a 512-token prefill, 2 blocks of two
+    chunks over four windows; at B=4 one block per head.  The largest
+    layout (C=N=64, two chunks) fits."""
+    assert wk.plan(1, 64, 64, 32, 64, 132)[:3] == (2, 1, 1)
+    assert wk.plan(1, 512, 64, 32, 64, 132)[:3] == (2, 2, 4)
+    assert wk.plan(4, 512, 64, 32, 64, 132)[:3] == (1, 2, 8)
+    assert wk.smem_bytes(64, 64, 2) <= 227 * 1024
+
+
+def _steep(seed, b=2, s=128, h=3, n=16):
+    """The wkv inputs with steep decays: lw down to -20 per token, in steps
+    of 2^-10.  Then every running sum inside a chunk (at most 64 x 20 x
+    2^10 < 2^24 steps) is exact in float32 in any order of addition: at
+    these magnitudes float32 rounding of lw_incl alone puts the reference
+    itself (JAX and plain) several times the tolerance from a float64
+    evaluation, which would hide what is tested, the decay's factoring."""
+    r, k, v, lw, u, s0 = _rand(seed, b, s, h, n)
+    lw = -np.random.default_rng(seed + 100).uniform(0.01, 20.0, lw.shape)
+    return r, k, v, (np.round(lw * 1024) / 1024).astype(np.float32), u, s0
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 32, 64])
+@pytest.mark.parametrize("steep", [False, True])
+def test_wkv_factored_twin_matches_jax_kernel(jax_ref, chunk, steep):
+    """The kernel's arithmetic in plain PyTorch (sub-chunk factored decay
+    matrix, chunk-parallel terms, the cluster's composition of the state)
+    against the JAX kernel in interpret mode, within the reference's
+    tolerance; with steep decays a whole-chunk factoring
+    e^{lw_excl_i} e^{-lw_incl_j} overflows, the sub-chunk one does not."""
+    arrays = _steep(chunk) if steep else _rand(chunk, s=128)
+    b, s, h, n = arrays[0].shape
+    p = wk.plan(b, s, h, chunk, n, 132)
+    y, st = ref.wkv_sequence_factored(*_torch(*arrays), chunk, p.cluster, p.per_block)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+    jnp = jax_ref.jnp
+    y_k, s_k = jax_ref.wkv_chunk.wkv_sequence(*(jnp.asarray(a) for a in arrays),
+                                              chunk=chunk, interpret=True)
+    _close(y, y_k, WKV_TOL)
+    _close(st, s_k, WKV_TOL)
+    if steep:
+        lw_incl = np.cumsum(arrays[3].reshape(2, -1, chunk, 3, n), axis=2)
+        with np.errstate(over="ignore"):
+            assert not np.isfinite(np.exp(-lw_incl)).all()
+
+
 def test_wkv_rejects_ragged_sequence():
     with pytest.raises(ValueError, match="multiple of chunk"):
         wk.wkv_sequence(*_torch(*_rand(0, s=20)), chunk=8)
@@ -220,7 +293,9 @@ def test_quant_matmul_op_and_quant_envelope():
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 64, 3, 16, 8), (2, 64, 3, 16, 32),
-                                   (1, 64, 64, 64, 32), (4, 32, 64, 64, 32)],
+                                   (1, 64, 64, 64, 32), (4, 32, 64, 64, 32),
+                                   (1, 512, 64, 64, 32), (2, 1024, 3, 64, 32),
+                                   (3, 160, 5, 32, 32)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_cuda_wkv_sequence_matches_plain(cuda_device, shape):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -234,6 +309,36 @@ def test_cuda_wkv_sequence_matches_plain(cuda_device, shape):
     for g, w_ in zip(got, want):
         assert g.is_cuda
         _close(g, w_, WKV_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [8, 16, 32, 64])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+@pytest.mark.parametrize("b", [1, 4])
+def test_cuda_wkv_every_instance_matches_plain(cuda_device, chunk, n, b):
+    """Every (C, N) instance of the kernel at B in {1, 4}, over 4 chunks
+    and 2 heads, with steep decays (lw down to -20) in one head."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arrays = _steep(chunk * n + b, b=b, s=4 * chunk, h=2, n=n)
+    arrays[3][:, :, 0] = _rand(chunk + n, b=b, s=4 * chunk, h=2, n=n)[3][:, :, 0]
+    args = [t.to(cuda_device) for t in _torch(*arrays)]
+    want = ref.wkv_sequence_ref(*args, chunk)
+    got = wk.wkv_sequence(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        _close(g, w_, WKV_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_wkv_smem_matches_the_plan(cuda_device):
+    """The wrapper's shared-memory mirror equals the kernel's layout."""
+    from repro_torch.kernels._build import bind
+
+    fn = bind("wkv_chunk", wk._SIGNATURES)["spidr_wkv_smem"]
+    for chunk in wk.SIZES:
+        for n in wk.SIZES:
+            for per_block in (1, 2):
+                assert fn(chunk, n, per_block) == wk.smem_bytes(chunk, n, per_block)
 
 
 @pytest.mark.gpu
@@ -280,3 +385,51 @@ def test_cuda_quant_matmul_regimes_match_plain(cuda_device, m, bits, kn):
         got = qk.launch(x, wq, sc, bits, regime)
         torch.cuda.synchronize()
         _close(got, want, QMM_TOL)
+
+
+def _tool(name):
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, path
+
+
+def test_phase_split_stamps_every_barrier():
+    """tools/phase_split.py instruments the wkv kernel: one stamp at
+    the kernel's entry and one after each block or cluster barrier, each
+    named by its source line, nothing else changed."""
+    import re
+
+    tool, _ = _tool("phase_split")
+    src = (wk.__file__.rsplit("/", 1)[0] + "/csrc/wkv_chunk.cu")
+    text = open(src).read()
+    out = tool.instrument(text)
+    stamps = re.findall(r"WKV_STAMP\((\d+)\);", out)
+    kernels = len(re.findall(r"__global__", text))
+    body = text[text.index("__global__"):]
+    barriers = len(re.findall(r"__syncthreads\(\);|cluster\.sync\(\);|mbar_wait\([^;]*\);",
+                              body))
+    assert kernels == 1 and len(stamps) == kernels + barriers
+    lines = text.splitlines()
+    for line in stamps[1:]:
+        assert re.search(r"__syncthreads\(\);|cluster\.sync\(\);", lines[int(line) - 1])
+    assert re.sub(r"\s*WKV_STAMP\(\d+\);|\s*int nst_ = 0;", "",
+                  out[len(tool._PRELUDE):-len(tool._EPILOGUE)]) == text
+
+
+def test_phase_split_needs_a_card():
+    """tools/phase_split.py measures the card only: without one it exits 2
+    and prints no result (test_torch_kernels.py checks the timing tool)."""
+    import subprocess
+    import sys
+
+    if torch.cuda.is_available():
+        pytest.skip("there is a card: the tool would measure it")
+    _, path = _tool("phase_split")
+    r = subprocess.run([sys.executable, str(path)], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 2 and r.stdout == "", (r.returncode, r.stdout, r.stderr)

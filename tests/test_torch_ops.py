@@ -313,8 +313,48 @@ def test_cuda_lif_step_matches_plain(cuda_device, shape):
             assert_same(g, w_)
 
 
+# B3's plan: the quickstart's four shapes, flow, ragged ones, and fan-ins
+# on both sides of the ring's reach.
+B3_PLAN_SHAPES = [(16384, 18, 16), (16384, 144, 16), (4096, 144, 16), (4, 64, 11),
+                  (221184, 288, 32), (221184, 288, 2), (4097, 145, 33), (65, 130, 40),
+                  (100, 320, 32), (100, 321, 32), (4096, 2000, 32)]
+
+
+@pytest.mark.parametrize("mkn", B3_PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("sms", [132, 8])
+def test_fused_lif_gemm_float_plan_geometry(mkn, sms):
+    """On the ring: a persistent grid no larger than the tiles or the card,
+    2-4 stages, shared memory within a block's share; the tile loop, one
+    block per M tile, exactly where two stages do not fit."""
+    m, k, n = mkn
+    plan = fk.f32_plan(m, k, n, sms)
+    slabs, tiles = -(-n // 32), -(-m // 64)
+    if plan.route == "tile":
+        assert fk.f32_smem(k, n, 2) > 227 * 1024 and plan.grid_x == tiles
+        return
+    assert plan.route == "ring" and fk.f32_smem(k, n, 2) <= 227 * 1024
+    assert 1 <= plan.grid_x <= tiles and 2 <= plan.stages <= 4
+    assert plan.grid_x * slabs <= max(slabs, 4 * sms)
+    smem = fk.f32_smem(k, n, plan.stages)
+    per_sm = -(-plan.grid_x * slabs // sms)
+    assert smem <= 227 * 1024 and per_sm * (smem + 1024) <= 228 * 1024
+
+
+def test_fused_lif_gemm_float_plan_main_shapes():
+    """Gesture conv: one block per SM with 4 stages of 64 x 144 fp32 spikes
+    (36,864 bytes + 32 of slack) and 64 x 16 Vmem beside the 144 x 16
+    weight slab (9,216 bytes) and 8 KB of partial sums; flow-middle: 2
+    stages of 64 x 288 floats + 64 x 32."""
+    assert fk.f32_plan(16384, 144, 16, 132) == ("ring", 132, 4)
+    assert fk.f32_smem(144, 16, 4) == 128 + 9216 + 8192 + 4 * (36992 + 4096)
+    assert fk.f32_plan(221184, 288, 32, 132) == ("ring", 132, 2)
+    assert fk.f32_plan(4, 64, 11, 132)[:2] == ("ring", 1)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("mkn", [(65, 130, 40), (16384, 144, 16), (100, 18, 33)],
+@pytest.mark.parametrize("mkn", [(65, 130, 40), (16384, 144, 16), (100, 18, 33),
+                                 (16384, 18, 16), (4096, 144, 16), (4, 64, 11),
+                                 (4097, 36, 11), (70, 321, 32), (130, 2000, 16)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_cuda_fused_lif_gemm_float_matches_plain(cuda_device, mkn):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -323,6 +363,7 @@ def test_cuda_fused_lif_gemm_float_matches_plain(cuda_device, mkn):
     s = torch.from_numpy((rng.random((m, k)) < 0.1).astype(np.float32)).to(cuda_device)
     w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(cuda_device)
     v = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)).to(cuda_device)
+    before = fk.LAUNCHES["fused_lif_gemm"]
     for leak, soft in ((1.0, False), (0.9, True)):
         vw, sw = ref.fused_lif_gemm_ref(s, w, v, 0.5, leak, soft)
         vg, sg = fk.fused_lif_gemm(s, w, v, 0.5, leak, soft)
@@ -330,6 +371,7 @@ def test_cuda_fused_lif_gemm_float_matches_plain(cuda_device, mkn):
         v_pre = (v * leak if leak != 1.0 else v) + s @ w
         res = ref.compare_float_step(vg, sg, vw, sw, v_pre, 0.5)
         assert res["ok"], res
+    assert fk.LAUNCHES["fused_lif_gemm"] == before + 2
 
 
 # B4 on the card: ragged M, odd K, N from one n8 tile to three slabs, fan-ins
