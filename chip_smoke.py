@@ -14,6 +14,7 @@ Phases, each printing JSON lines:
                 layers M=2*110592 K=288 N=32 and N=2), and for B1, B2 and
                 B4 also N=33 and a ragged (4097, 145, 16), and for B2 and
                 B4 a fan-in beyond the tensor-core ring (4096, 2000, 32),
+                and for B3 the optical-flow first layer (K=18, N=32),
                 so both routes of each plan run: the integer kernels
                 bit-exact, the
                 float ones within the float tolerance (Vmem atol=rtol=1e-5,
@@ -40,7 +41,22 @@ Phases, each printing JSON lines:
                 path on the card, layer by layer; unfused == fused; the
                 chip cost equal to the CPU's for the same network; and the
                 zero-skipping spike GEMM timed on the clustered DVS spikes
-  6. lm kernels the LM stack's kernels against their plain versions on the
+  6. optical_flow  ``repro_torch.launch.optical_flow`` at full width
+                (288x384, T=10, B=2): the float forward through B3 (80
+                launches) and its AEE; ``spidr.compile`` of the same params
+                on 1 core and on a compiled 4-core plan at 4-bit (whole
+                layers on cores) and 8-bit (seven layers channel-split
+                over two cores), and the params exported to per-channel
+                8-bit integers, saved, loaded and deployed on 1 and 4
+                cores; each at t_block 1 and 5.  Checked: every integer
+                run bit-exact (readout, spike and input counts) with the
+                1-core run and with backend="torch", every 4-core run
+                making exactly the 1-core run's B1/B2 launches; then (after
+                the launch counts are read) the float forward on the walk's
+                inputs against the plain float path on the card, layer by
+                layer as in phase 5, and free-running (equal spike counts,
+                the Vmem readout within atol = rtol = T * 1e-5)
+  7. lm kernels the LM stack's kernels against their plain versions on the
                 card: the RWKV6 wkv (B7) at H=64, N=64, chunk 32, S in
                 {32, 64, 512}, B in {1, 4}, rtol 2e-4 / atol 2e-5 on y and
                 the state; quant_matmul (B6, int8 and int4) at the rwkv6-7b
@@ -51,14 +67,14 @@ Phases, each printing JSON lines:
                 Timed as in phase 2, with the library yardstick for B6
                 (``torch.matmul`` on the dequantized weight), and both
                 regimes timed on each side of the cut-over
-  7. lm         rwkv6-7b at full published width (32 layers, d_model 4096,
+  8. lm         rwkv6-7b at full published width (32 layers, d_model 4096,
                 random weights from a seed, bfloat16 serving copies) serving
                 8 requests of 64 tokens (8 new each) through the port's
                 Server at capacity 4; every prefill launches B7 once per
                 layer.  Then the served model's layer-0 channel-mix key
                 projection on the 4 slots' last inputs through
                 ``ops.quant_matmul_op`` (int8 and int4, per-channel scales)
-  8. lm check   one 512-token prefill layer by layer: each layer's r, k, v,
+  9. lm check   one 512-token prefill layer by layer: each layer's r, k, v,
                 lw through B7 and the plain wkv, held to B7's tolerance, the
                 walk going on with the plain one; the logits of the kernel
                 route against the plain route's; the served tokens against
@@ -66,7 +82,7 @@ Phases, each printing JSON lines:
                 the plain route's top-2 logit gap is within twice the two
                 routes' largest bfloat16 logit difference); in float32
                 compute, the two routes' logits within 1e-3 of the largest
-  9. a ``kernels`` line: launches on phases 3-5 and 7, max error, kernel /
+ 10. a ``kernels`` line: launches on phases 3-6 and 8, max error, kernel /
      plain / bound / library times per kernel
 
 then the card's name and power limit (nvidia-smi) and, last, the line
@@ -200,12 +216,17 @@ def main() -> int:
     quick = phase_quickstart(torch, dev)
     launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
     check_quickstart(torch, dev, quick, results)
+    kernels.reset_launches()
+    flow_walk = phase_optical_flow(torch, dev)
+    launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
+    check_optical_flow(torch, dev, flow_walk)
     results.update(phase_lm_kernels(torch, dev))
     lm = lm_model(torch, dev)
     kernels.reset_launches()
     phase_lm(torch, dev, kernels, lm)
     launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
-    emit({"phase": "launches", "paths": "gesture + flow + quickstart + lm",
+    emit({"phase": "launches",
+          "paths": "gesture + flow + quickstart + optical_flow walk + lm",
           "launches": launches})
     check_lm(torch, dev, lm)
     for name in KERNEL_INFO:
@@ -272,8 +293,12 @@ FLOAT_SHAPES = {
     "gesture_conv_pooled": (4 * 32 * 32, 144, 16),
     "gesture_fc": (4, 64, 11),
 }
-B3_TIMED = {**FLOAT_SHAPES, "flow_middle": SHAPES["flow_middle"]}
-B3_CHECKED = {**B3_TIMED, "flow_last": SHAPES["flow_last"], **EDGE_SHAPES}
+# And on the optical-flow walk's float forward (288x384, B=2, T=10): 10
+# launches at the first layer (K = 3*3*2, where N = 32 takes the slab
+# route), 60 in the middle and 10 at the last layer.
+B3_TIMED = {**FLOAT_SHAPES, "flow_first": (2 * 288 * 384, 18, 32),
+            "flow_middle": SHAPES["flow_middle"], "flow_last": SHAPES["flow_last"]}
+B3_CHECKED = {**B3_TIMED, **EDGE_SHAPES}
 
 
 def _inputs(torch, dev, m, k, n, vmem_bits, t=None, density=0.1, seed=0):
@@ -358,7 +383,7 @@ def _check_smem() -> None:
     from repro_torch.kernels import wkv_chunk as wk
 
     sg = _build.bind("spike_gemm", sk._SIGNATURES)
-    for shape_name, (m, k, n) in {**SHAPES, **EDGE_SHAPES, **FLOAT_SHAPES}.items():
+    for shape_name, (m, k, n) in {**SHAPES, **EDGE_SHAPES, **B3_TIMED}.items():
         pairs = [("B2 tile loop", fl._fn("spidr_fused_lif_gemm_int_tblk_tile_smem")(k)
                   + fl._TILE_STATIC, fl.tblk_tile_smem(k))]
         for stages in range(2, 9):
@@ -844,6 +869,56 @@ def phase_quickstart(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 6. the optical-flow walk at full width: 1 core against 4-core plans
+# ---------------------------------------------------------------------------
+INT_KERNELS = ("fused_lif_gemm_int", "fused_lif_gemm_int_tblk")
+
+
+def phase_optical_flow(torch, dev):
+    from repro_torch.launch import optical_flow
+
+    t0 = time.perf_counter()
+    out = optical_flow.run(dev, log=lambda msg: print(msg, file=sys.stderr, flush=True))
+    seconds = time.perf_counter() - t0
+    ff = out["float_forward"]
+    h, w = optical_flow.FULL["hw"]
+    check(ff["finite"] and ff["readout_shape"] == [2, h, w, 2],
+          "optical_flow: the float readout is not finite (2, 288, 384, 2)")
+    check(ff["launches"].get("fused_lif_gemm", 0) == 8 * out["T"],
+          f"optical_flow: the float forward made {ff['launches']} launches, "
+          "not one B3 launch per layer-timestep")
+    rows = out["deployments"]
+    check(len(rows) == 12, f"optical_flow: {len(rows)} deployments, not 12")
+    one_core = {(r["deployment"], r["weight_bits"], r["t_block"]): r
+                for r in rows if r["n_cores"] == 1}
+    for r in rows:
+        what = (f"optical_flow {r['deployment']} {r['weight_bits']}-bit "
+                f"{r['n_cores']} core(s) t_block={r['t_block']}")
+        check(r["bit_exact_vs_1core"], f"{what}: differs from 1 core")
+        check(r["bit_exact_vs_torch"], f"{what}: differs from backend='torch'")
+        int_launches = {k: r["launches"].get(k, 0) for k in INT_KERNELS}
+        check(sum(int_launches.values()) > 0, f"{what}: launched no B1/B2")
+        base = one_core[(r["deployment"], r["weight_bits"], r["t_block"])]
+        check(r["launches"] == base["launches"],
+              f"{what}: launches {r['launches']} differ from 1 core's "
+              f"{base['launches']}")
+    splits = {(r["deployment"], r["weight_bits"]): r["split_layers"]
+              for r in rows if r["n_cores"] == 4}
+    check(splits[("per-tensor", 8)] == 7 and splits[("per-tensor", 4)] == 0
+          and splits[("exported", 8)] == 7,
+          f"optical_flow: channel-split layers {splits}, expected 7 at 8-bit, 0 at 4-bit")
+    emit({"phase": "optical_flow", "seconds": seconds, "hw": out["hw"], "T": out["T"],
+          "batch": out["batch"], "input_sparsity": out["input_sparsity"],
+          "float_forward": ff,
+          "deployments": [{k: v for k, v in r.items() if k != "plan"} for r in rows],
+          "plans": {f"{r['deployment']} {r['weight_bits']}-bit": r["plan"]
+                    for r in rows if r["n_cores"] == 4 and r["t_block"] == 1},
+          "pipeline": out["pipeline"], "bit_exact": True,
+          "launches_equal_1core": True})
+    return out
+
+
 def _lockstep_forward(torch, params, events, spec, qspec) -> dict:
     """The float forward layer by layer: at every layer-timestep the fused
     kernel and the plain composition take the same input and Vmem, are
@@ -888,6 +963,46 @@ def _lockstep_forward(torch, params, events, spec, qspec) -> dict:
             act = sp
         state = new
     return tot
+
+
+def check_optical_flow(torch, dev, walk) -> None:
+    """The walk's float forward against the plain float path on the same
+    params and events: layer by layer (every spike flip within 1e-5 of the
+    threshold), as the quickstart's is checked, then free-running.  The
+    flow readout is the last layer's Vmem, a float: where no spike count
+    differs it must agree within T times the per-step tolerance (the
+    layer's Vmem carries one step's rounding per timestep)."""
+    from repro_torch.core.network import run_snn
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels.ref import FLOAT_TOL
+    from repro_torch.launch import optical_flow
+
+    t0 = time.perf_counter()
+    spec, params, events, flow_gt = optical_flow.inputs(dev)
+    params = [None if p is None else p.to(dev) for p in params]
+    with torch.no_grad():
+        pred, counts = run_snn(params, events, spec, QuantSpec(4), record_spikes=True)
+        pred_p, counts_p = run_snn(params, events, spec, QuantSpec(4),
+                                   record_spikes=True, matmul=torch.matmul)
+        lock = _lockstep_forward(torch, params, events, spec, QuantSpec(4))
+    aee = float(torch.linalg.vector_norm(pred - flow_gt, dim=-1).mean())
+    counts_equal = bool(torch.equal(counts_p, counts))
+    tol = FLOAT_TOL * spec.timesteps
+    err = (pred - pred_p).abs()
+    readout_close = bool((err <= tol + tol * pred_p.abs()).all())
+    emit({"phase": "optical_flow_check", "float_forward_spike_counts_equal": counts_equal,
+          "float_forward_readout_max_abs_diff": float(err.max()),
+          "readout_tolerance": tol, "readout_close": readout_close,
+          "plain_aee": float(torch.linalg.vector_norm(pred_p - flow_gt, dim=-1).mean()),
+          "aee": aee, "float_forward_layer_by_layer": lock,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    check(aee == walk["float_forward"]["aee"],
+          f"optical_flow: the float forward on the walk's inputs gives AEE {aee}, "
+          f"the walk {walk['float_forward']['aee']}")
+    check(lock["ok"], f"optical_flow float forward: fused kernel vs plain {lock}")
+    check((counts_equal and readout_close) or lock["spikes_flipped"] > 0,
+          "optical_flow float forward differs from the plain path with no "
+          "near-threshold spike flip to explain it")
 
 
 def check_quickstart(torch, dev, out, results) -> None:

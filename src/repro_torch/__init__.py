@@ -9,8 +9,15 @@ The layout mirrors ``repro`` so each module's counterpart is easy to find:
                the paper's two network specs
     kernels/   hand-written CUDA kernels for Hopper (``csrc/*.cu``), their
                wrappers, and the plain PyTorch versions beside them
-    engine/    the fused timestep loop (``run_chunk`` / ``run_engine``)
-    spidr/     the ``DeployTarget`` -> ``CompiledSNN`` facade
+    engine/    the fused timestep loop (``run_chunk`` / ``run_engine``),
+               multi-core plans (``compile_engine``) and the chip cost models
+    compiler/  partition / place / schedule a network onto SpiDR cores
+    snn/       synthetic event streams; ``export`` folds float weights into
+               per-channel integers
+    checkpoint/ atomic, checksummed checkpoints in the reference's format
+    obs/       the multi-core pipeline timeline as a Chrome trace
+    spidr/     the ``DeployTarget`` -> ``CompiledSNN`` facade (``save`` /
+               ``load``)
     serving/   ``BatchWorker``; ``launch/serve.py`` is its CLI
     models/    the LM stack's ``ssm`` family (RWKV6): prefill on the wkv
                kernel, decode by the recurrence; ``launch/serve.py --arch``

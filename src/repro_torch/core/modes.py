@@ -40,7 +40,7 @@ class CoreConfig:
     ``n_cores`` declares the multi-core extension (paper Sec II-E) — but a
     single ``map_layer`` call only ever maps one core, so ``n_cores > 1``
     is rejected there: multi-core partition/place/schedule is the
-    compiler's job (not ported yet, ROADMAP A5).
+    compiler's job (:func:`repro_torch.compiler.compile_network`).
     """
 
     spec: QuantSpec
@@ -90,8 +90,8 @@ def map_layer(shape: LayerShape, core: CoreConfig,
     """Choose the operating mode and tiling for a layer (Fig 12 logic).
 
     ``map_layer`` maps a layer onto ONE core.  Multi-core placement is the
-    compiler's job (not ported yet, ROADMAP A5), which calls ``map_layer``
-    per core on the partitioned slices.
+    compiler's job (:func:`repro_torch.compiler.compile_network`), which
+    calls ``map_layer`` per core on the partitioned slices.
 
     ``force_mode`` overrides the fan-in-driven mode choice (the compiler's
     selector enumerates both modes when both are feasible); ``None`` keeps
@@ -100,8 +100,9 @@ def map_layer(shape: LayerShape, core: CoreConfig,
     if core.n_cores > 1:
         raise ValueError(
             f"map_layer maps a layer onto one SpiDR core, but CoreConfig."
-            f"n_cores={core.n_cores}; multi-core partition/place/schedule "
-            "is not ported yet (ROADMAP A5)"
+            f"n_cores={core.n_cores}; use repro_torch.compiler.compile_network "
+            "to partition/place/schedule a network across a multi-core grid "
+            "(it invokes map_layer per core on the partitioned slices)"
         )
     spec = core.spec
     ch_per_pair = spec.neurons_per_row  # 48 / W_b

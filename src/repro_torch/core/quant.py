@@ -7,13 +7,16 @@ as wide minus one bit.  Integer arithmetic in torch is bit-exact with the
 digital datapath, and with ``repro.core.quant``.
 
 ``ste_quantize`` is the forward of the reference's per-tensor
-straight-through fake-quant (the training-mode forward's weights); its
-gradient, the power-of-two ``po2_*`` quantizers and the rest of QAT come
-with the training slice of the port (ROADMAP A10).
+straight-through fake-quant (the training-mode forward's weights).  The
+power-of-two quantizers ``po2_scale``/``po2_quantize`` and
+``requantize_threshold`` are the exporter's (``snn.export``); their
+straight-through versions and the rest of QAT come with the training
+slice of the port (ROADMAP A10).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -22,7 +25,10 @@ __all__ = [
     "QuantSpec",
     "SUPPORTED_PRECISIONS",
     "dequantize",
+    "po2_quantize",
+    "po2_scale",
     "quantize",
+    "requantize_threshold",
     "sat_add",
     "saturate",
     "ste_quantize",
@@ -110,6 +116,63 @@ def saturate(v: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
 def sat_add(v: torch.Tensor, w: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     """One weight->Vmem accumulation at Vmem precision (saturating)."""
     return saturate(v.to(torch.int32) + w.to(torch.int32), spec)
+
+
+# --------------------------------------------------------------------------
+# Deploy-exact quantization: power-of-two per-channel scales.
+#
+# With a power-of-two scale every product and sum of the training graph is
+# ``scale * <integer>``, held exactly in float32, so saturation bounds,
+# thresholds and the leak shift commute with the scaling.  Every division
+# below is tensor by tensor in float32, as the reference's: a CUDA division
+# by a Python scalar multiplies by its reciprocal, which rounds otherwise.
+# --------------------------------------------------------------------------
+def po2_scale(w: torch.Tensor, spec: QuantSpec, axis=None) -> torch.Tensor:
+    """Smallest power-of-two scale whose grid covers ``|w|`` per channel.
+
+    Computed as the reference's ``exp2(ceil(log2(amax / w_max)))`` lowers
+    on XLA: ``log2(x) = log(x) / log(2)`` and ``exp2(k) = exp(ln2 * k)``, in
+    float32 (an all-zero channel gets scale 1).  That is not always the
+    exact power of two (ROADMAP C6): a ratio of exactly ``2**-15`` is
+    stepped up to ``2**-14``, and ``exp(ln2 * k)`` is off a power of two
+    below ``k = -15`` and above ``k = 12``.  The port keeps the reference's
+    answer; on the CPU torch's float32 ``log`` and ``exp`` give the same
+    exponent for every ratio within 64 ulps of ``2**k``, ``-26 <= k <= 34``,
+    and the same scale for ``-125 <= k <= 31``.
+    """
+    w = torch.as_tensor(w).to(torch.float32)
+    amax = w.abs().amax() if axis is None else w.abs().amax(dim=axis, keepdim=True)
+    w_max = torch.full_like(amax, float(spec.w_max))
+    ratio = torch.where(amax == 0, w_max, amax) / w_max
+    k = torch.ceil(torch.log(ratio) / torch.log(torch.full_like(ratio, 2.0)))
+    return torch.exp(torch.full_like(k, math.log(2.0)) * k)
+
+
+def po2_quantize(w: torch.Tensor, spec: QuantSpec, axis=None):
+    """Symmetric quantization onto a power-of-two grid.
+
+    Returns ``(q, scale)``: ``q`` int8 and ``scale`` a float32 power of two
+    (per channel when ``axis`` selects the reduction axis, kept as a size-1
+    axis there).
+    """
+    w = torch.as_tensor(w).to(torch.float32)
+    scale = po2_scale(w, spec, axis)
+    q = torch.clamp(torch.round(w / scale), spec.w_min, spec.w_max)
+    return q.to(torch.int8), scale
+
+
+def requantize_threshold(threshold, scale: torch.Tensor, spec: QuantSpec):
+    """Fold a float firing threshold onto a layer's integer Vmem grid.
+
+    Returns ``(thr_int, thr_scaled)`` with ``thr_scaled = thr_int * scale``
+    exactly (power-of-two ``scale``).  ``thr_int`` is clipped to
+    ``[v_min, v_max + 1]``: above ``v_max`` the saturated Vmem never reaches
+    it (the neuron never fires), below ``v_min`` it always fires.
+    """
+    scale = torch.as_tensor(scale).to(torch.float32)
+    thr = torch.as_tensor(threshold, dtype=torch.float32, device=scale.device)
+    t = torch.clamp(torch.round(thr / scale), spec.v_min, spec.v_max + 1)
+    return t.to(torch.int32), t * scale
 
 
 def ste_quantize(w: torch.Tensor, weight_bits: int) -> torch.Tensor:

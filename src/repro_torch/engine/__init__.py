@@ -1,5 +1,6 @@
-"""The integer SNN inference engine (single core) and its chip cost model."""
-from .cost import EngineCost, estimate_cost
+"""The integer SNN inference engine (single- and multi-core plans) and its
+chip cost models."""
+from .cost import EngineCost, MulticoreCost, estimate_cost, estimate_multicore_cost
 from .inference import (
     BACKENDS,
     ChunkOutput,

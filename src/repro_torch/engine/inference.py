@@ -29,17 +29,44 @@ as one whole-stream call.  ``run_engine`` is ``init_state`` + one
 
 Spike planes are int8 between layers (the reference keeps float32 0/1
 planes; the values are the same).  All accumulators and counters are
-int32, as in the reference.  Multi-core plans (``compile_engine``) and
-autotuned per-layer kernel configs belong to later slices of the port.
+int32, as in the reference.  ``build_engine`` quantizes with per-tensor
+scales (scalar thresholds); exported networks (``snn.export.deploy``)
+carry per-channel scales and ``(K,)`` integer thresholds, which the
+kernels take as a vector.  Autotuned per-layer kernel configs belong to a
+later slice of the port (ROADMAP A8).
+
+Multi-core plans.  ``compile_engine(engine, schedule)`` bakes a
+``repro_torch.compiler`` :class:`CoreSchedule` into the engine as the
+reference does: each weight layer gets its per-core channel slices of
+``w_q`` stacked and zero-padded to the widest (``w_cores``), each core's
+``(lo, hi)`` (``core_slices``), and, for per-channel thresholds, the
+threshold slices padded with ``v_max + 1`` (``thr_cores``).  They stay on
+the host: they describe the placement, and nothing at run time reads them.
+The reference then runs a lockstep ``vmap`` over the active cores'
+``(F, Kc)`` slices and concatenates their outputs in ``lo`` order.  The
+port does not launch once per core.  ``compile_engine`` checks that every
+layer's active slices are contiguous and cover ``[0, K)`` (and raises if
+not; ``partition_graph`` always cuts them so), which makes the slices in
+``lo`` order, without their padding, ``w_q`` and ``thr_int`` again.  As
+every output channel of the integer GEMM + neuron step is independent of
+the others, the single-core layer update on ``w_q``/``thr_int`` computes
+exactly what the reference's stacked per-core calls compute: a plan makes
+the same launches as one core, and padded channels never reach a kernel.
+On one card a plan changes where the chip's row operations land (the cost
+model, ``engine.cost.estimate_multicore_cost``), not the arithmetic.  The
+reference's ``shard_map`` across devices (``device_parallel=True``) is not
+ported (ROADMAP A9).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
+from ..compiler.schedule import CoreSchedule
 from ..core.layers import im2col, maxpool2d
 from ..core.network import SNNSpec, init_state_shapes
 from ..core.neuron import NeuronConfig, neuron_step_int
@@ -98,13 +125,25 @@ class EngineLayer:
     kind: str                                # "conv" | "fc" | "pool" | "adaptive_pool"
     neuron: Optional[NeuronConfig] = None
     w_q: Optional[torch.Tensor] = None       # (F, K) int8 on the engine's device
-    w_scale: Optional[float] = None          # per-tensor scale: w ~= w_q * scale
-    thr_int: object = 0                      # integer threshold at this scale
+    w_scale: object = None                   # w ~= w_q * scale: a float
+                                             # (per-tensor) or a (K,) float32
+                                             # array (per-channel, exported)
+    thr_int: object = 0                      # integer threshold at this scale:
+                                             # int, or (K,) int32 on the device
     kh: int = 0
     kw: int = 0
     stride: int = 1
     padding: int = 0
     target_hw: int = 0                       # adaptive pool target
+    # Multi-core placement (set by ``compile_engine`` from a CoreSchedule),
+    # as the reference's, on the host: the per-core channel slices of
+    # ``w_q`` stacked and zero-padded to the widest slice, and each core's
+    # (lo, hi) channel range ((0, 0) = idle core).
+    w_cores: Optional[torch.Tensor] = None   # (n_cores, F, Kc) int8
+    core_slices: tuple = ()                  # per-core (lo, hi), len n_cores
+    # Per-core slices of a per-channel ``thr_int`` (padding v_max + 1, never
+    # fires); None when ``thr_int`` is a scalar.
+    thr_cores: Optional[torch.Tensor] = None  # (n_cores, Kc) int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +152,9 @@ class SNNEngine:
     cfg: EngineConfig
     layers: tuple  # of EngineLayer
     device: torch.device
+    # Multi-core plan (None = single-core); ``compile_engine`` sets both.
+    schedule: Optional[CoreSchedule] = None
+    device_parallel: bool = False
 
 
 @dataclasses.dataclass
@@ -194,11 +236,88 @@ def build_engine(spec: SNNSpec, params, cfg: EngineConfig,
     return SNNEngine(spec=spec, cfg=cfg, layers=tuple(layers), device=dev)
 
 
-def compile_engine(engine: SNNEngine, schedule, device_parallel=None):
-    """Multi-core plans are not ported yet (ROADMAP A5)."""
-    raise NotImplementedError(
-        "multi-core execution (compile_engine / _multicore_apply) is not "
-        "ported yet — see ROADMAP.md A5; run single-core (n_cores=1)")
+def compile_engine(engine: SNNEngine, schedule: CoreSchedule,
+                   device_parallel: Optional[bool] = None) -> SNNEngine:
+    """Bake a compiler :class:`CoreSchedule` into an executable engine.
+
+    Builds every weight layer's ``w_cores``/``core_slices``/``thr_cores``
+    exactly as the reference's ``_compile_engine`` does, and checks that
+    the active slices are contiguous over ``[0, K)``: that check is what
+    makes the plan compute what one core computes, so the layers keep
+    running on ``w_q``/``thr_int`` (module docstring).  Bit-exact with the
+    single-core engine under any chunking.
+
+    ``device_parallel``: None or False run the plan on the engine's one
+    device.  True asks for the reference's placement of the cores across
+    devices: it raises ``ValueError`` when the host has fewer than
+    ``n_cores`` CUDA devices (the reference asserts the same), and
+    ``NotImplementedError`` otherwise — that path is ROADMAP A9.
+    """
+    if engine.schedule is not None:
+        raise ValueError("engine already carries a schedule")
+    qspec = engine.cfg.qspec
+    for ls in schedule.layers:
+        if ls.plan.spec != qspec:
+            raise ValueError(
+                f"schedule selected {ls.plan.spec} for layer {ls.node} but "
+                f"the engine executes {qspec}; precision-exploring schedules "
+                "(allowed_specs) are for cost analysis, not execution")
+    n_cores = schedule.n_cores
+    if device_parallel:
+        n_dev = torch.cuda.device_count()
+        if n_cores > n_dev:
+            raise ValueError(f"device_parallel needs {n_cores} devices, "
+                             f"host has {n_dev}")
+        if n_cores > 1:
+            raise NotImplementedError(
+                "device_parallel=True: placing a plan's cores on separate "
+                "CUDA devices is not ported yet — see ROADMAP.md A9; leave "
+                "device_parallel unset to run the plan on one device")
+    by_node = {ls.node: ls for ls in schedule.layers}
+    new_layers = []
+    for idx, el in enumerate(engine.layers):
+        if el.kind not in ("conv", "fc"):
+            new_layers.append(el)
+            continue
+        new_layers.append(_place_layer(el, by_node[idx], n_cores, qspec))
+    return dataclasses.replace(engine, layers=tuple(new_layers),
+                               schedule=schedule,
+                               device_parallel=bool(device_parallel))
+
+
+def _place_layer(el: EngineLayer, ls, n_cores: int,
+                 qspec: QuantSpec) -> EngineLayer:
+    """One weight layer's per-core slices (the reference's construction),
+    after checking that they tile ``[0, K)`` in ``lo`` order."""
+    f, k = el.w_q.shape
+    if k != ls.out_channels:
+        raise ValueError(f"layer {ls.node}: the engine has {k} output "
+                         f"channels, the schedule {ls.out_channels}")
+    order = sorted(ls.slices, key=lambda s: s.lo)
+    edges = [0] + [s.hi for s in order]
+    if [s.lo for s in order] != edges[:-1] or edges[-1] != k \
+            or any(s.hi <= s.lo for s in order):
+        raise ValueError(
+            f"layer {ls.node}: channel slices "
+            f"{[(s.core, s.lo, s.hi) for s in order]} are not contiguous "
+            f"over [0, {k}) — the single-core update would not equal the "
+            "per-core computation")
+    kc = max(s.width for s in ls.slices)
+    w_np = el.w_q.cpu().numpy()
+    w_cores = np.zeros((n_cores, f, kc), np.int8)
+    core_slices = [(0, 0)] * n_cores
+    per_channel = isinstance(el.thr_int, torch.Tensor) and el.thr_int.ndim > 0
+    thr_np = el.thr_int.cpu().numpy() if per_channel else None
+    thr_cores = (np.full((n_cores, kc), qspec.v_max + 1, np.int32)
+                 if per_channel else None)
+    for s in ls.slices:
+        w_cores[s.core, :, :s.width] = w_np[:, s.lo:s.hi]
+        core_slices[s.core] = (s.lo, s.hi)
+        if per_channel:
+            thr_cores[s.core, :s.width] = thr_np[s.lo:s.hi]
+    return dataclasses.replace(
+        el, w_cores=torch.from_numpy(w_cores), core_slices=tuple(core_slices),
+        thr_cores=None if thr_cores is None else torch.from_numpy(thr_cores))
 
 
 # ---------------------------------------------------------------------------
@@ -459,17 +578,32 @@ def run_chunk(engine: SNNEngine, state: EngineState, events,
     )
 
 
-def run_engine(engine: SNNEngine, events) -> EngineOutput:
-    """Run a whole ``(T, B, H, W, C)`` binary event stream through the engine.
-
-    The batch is folded into the GEMM rows (one weight-stationary pass per
-    layer-timestep); this is ``init_state`` + one whole-stream
-    ``run_chunk``.
-    """
-    events = _as_spikes(engine, events)
+def _run_folded(engine: SNNEngine, events: torch.Tensor) -> EngineOutput:
     _, out = run_chunk(engine, init_state(engine, events.shape[1]), events)
     return EngineOutput(readout=out.readout, spike_counts=out.spike_counts,
                         input_counts=out.input_counts)
+
+
+def run_engine(engine: SNNEngine, events, batch_mode: str = "fold") -> EngineOutput:
+    """Run a whole ``(T, B, H, W, C)`` binary event stream through the engine.
+
+    ``batch_mode="fold"`` folds the batch into the GEMM rows (one
+    weight-stationary pass per layer-timestep); ``"vmap"`` runs each sample
+    on its own (B = 1) through the same kernels, as the reference's
+    ``jax.vmap`` over a single-sample engine computes it.  Identical
+    results.  Either is ``init_state`` + one whole-stream ``run_chunk``.
+    """
+    events = _as_spikes(engine, events)
+    if batch_mode == "fold":
+        return _run_folded(engine, events)
+    if batch_mode == "vmap":
+        outs = [_run_folded(engine, events[:, i:i + 1].contiguous())
+                for i in range(events.shape[1])]
+        return EngineOutput(
+            readout=torch.cat([o.readout for o in outs]),
+            spike_counts=torch.stack([o.spike_counts for o in outs]).sum(0, dtype=_I32),
+            input_counts=torch.stack([o.input_counts for o in outs]).sum(0, dtype=_I32))
+    raise ValueError(f"unknown batch_mode {batch_mode!r}")
 
 
 def run_reference(engine: SNNEngine, events) -> EngineOutput:

@@ -1,19 +1,26 @@
 """Where the time goes: one full-width run on the card, profiled.
 
     python -m repro_torch.launch.profile --snn optical-flow --batch 2 --t-block 1
+    python -m repro_torch.launch.profile --snn optical-flow --n-cores 1 4 --weight-bits 4 8 --t-block 1 5
     python -m repro_torch.launch.profile --snn gesture --batch 4 --t-block 4
     python -m repro_torch.launch.profile --arch rwkv6-7b --prompt-len 512 --batch 4
-    python -m repro_torch.launch.profile --quickstart
+    python -m repro_torch.launch.profile --float-forward gesture
+    python -m repro_torch.launch.profile --float-forward optical-flow
 
-``--snn``: compiles the paper network at full Table II width (4-bit, fused
-CUDA kernels, random weights from a fixed seed) and profiles one
-``CompiledSNN.run``.  ``--arch``: builds the LM at full published width
-(random weights from a fixed seed, bfloat16 serving copies) and profiles
-one prefill of ``--prompt-len`` tokens (one request, as the server admits
-them) and one decode step over ``--batch`` slots.  ``--quickstart``: the
-quickstart's float forward (``run_snn(mode="train")`` on the gesture net
-at 64x64, T=10, batch 4, random weights and events from fixed seeds; one
-fused float kernel launch per weight layer-timestep).  Each workload is
+``--snn``: compiles the paper network at full Table II width (fused CUDA
+kernels, random weights from a fixed seed) and profiles one
+``CompiledSNN.run`` for every combination of ``--n-cores`` (a compiled
+multi-core plan above 1), ``--weight-bits`` and ``--t-block`` given
+(default: 1 core, 4-bit, ``t_block=1``), one line each.  ``--arch``:
+builds the LM at full published width (random weights from a fixed seed,
+bfloat16 serving copies) and profiles one prefill of ``--prompt-len``
+tokens (one request, as the server admits them) and one decode step over
+``--batch`` slots.  ``--float-forward gesture``: the quickstart's float
+forward (``run_snn(mode="train")`` on the gesture net at 64x64, T=10,
+batch 4, random weights and events from fixed seeds; one fused float
+kernel launch per weight layer-timestep); ``--float-forward
+optical-flow``: the same forward on the flow net at full width (288x384,
+T=10, batch 2, the optical-flow walk's step a).  Each workload is
 warmed up, then
 
   * timed ``--repeats`` times on the host clock, each run ending in
@@ -124,12 +131,13 @@ def profile_lm(arch: str, prompt_len: int, batch: int, repeats: int,
 
 
 def profile_run(snn: str, batch: int, t_block: int, repeats: int,
-                device=None) -> dict:
+                device=None, n_cores: int = 1, weight_bits: int = 4) -> dict:
     dev = _card(device)
     spec = (spidr_gesture if snn == "gesture" else spidr_optflow).CONFIG
     params = init_params(torch.Generator().manual_seed(0), spec)
     compiled = spidr.compile(spec, params, spidr.DeployTarget(
-        weight_bits=4, backend="fused", t_block=t_block), device=dev)
+        weight_bits=weight_bits, n_cores=n_cores, backend="fused",
+        t_block=t_block), device=dev)
     make = make_gesture_batch if snn == "gesture" else make_flow_batch
     events, _ = make(torch.Generator().manual_seed(1), batch=batch,
                      timesteps=spec.timesteps, hw=spec.input_hw, device=dev)
@@ -137,29 +145,34 @@ def profile_run(snn: str, batch: int, t_block: int, repeats: int,
     res = _measure(lambda: compiled.run(events), dev, repeats)
     res.pop("by_kernel")
     return {"snn": snn, "hw": list(spec.input_hw), "T": spec.timesteps,
-            "batch": batch, "t_block": t_block, **res}
+            "batch": batch, "t_block": t_block, "n_cores": n_cores,
+            "weight_bits": weight_bits, **res}
 
 
-def profile_float_forward(repeats: int, device=None) -> dict:
-    """The quickstart's float forward at full width (gesture net, 64x64,
-    T=10, batch 4)."""
-    from ..core.network import gesture_net, run_snn
+def profile_float_forward(repeats: int, device=None, snn: str = "gesture") -> dict:
+    """The float forward at full width: the quickstart's (gesture net,
+    64x64, T=10, batch 4) or the optical-flow walk's (288x384, T=10,
+    batch 2)."""
+    from ..core.network import gesture_net, optical_flow_net, run_snn
     from ..core.quant import QuantSpec
 
     dev = _card(device)
-    net = gesture_net()
+    gesture = snn == "gesture"
+    net = gesture_net() if gesture else optical_flow_net()
     params = [None if p is None else p.to(dev)
               for p in init_params(torch.Generator().manual_seed(0), net)]
-    events, _ = make_gesture_batch(torch.Generator().manual_seed(1), batch=4,
-                                   timesteps=10, hw=(64, 64), device=dev)
+    hw, batch = ((64, 64), 4) if gesture else (net.input_hw, 2)
+    make = make_gesture_batch if gesture else make_flow_batch
+    events, _ = make(torch.Generator().manual_seed(1), batch=batch,
+                     timesteps=10, hw=hw, device=dev)
     with torch.no_grad():
         res = _measure(lambda: run_snn(params, events, net, QuantSpec(4),
                                        record_spikes=True), dev, repeats)
     by_kernel = res.pop("by_kernel")
     total = sum(us for _, us in by_kernel.values()) or 1.0
     b3 = [(n, us) for k, (n, us) in by_kernel.items() if "lif_gemm_f32" in k]
-    return {"workload": "float_forward", "net": "gesture", "hw": [64, 64], "T": 10,
-            "batch": 4, **res, "b3_launches": sum(n for n, _ in b3),
+    return {"workload": "float_forward", "net": snn, "hw": list(hw), "T": 10,
+            "batch": batch, **res, "b3_launches": sum(n for n, _ in b3),
             "b3_ms": sum(us for _, us in b3) / 1e3,
             "b3_share": sum(us for _, us in b3) / total}
 
@@ -170,22 +183,32 @@ def main(argv=None) -> None:
     what = ap.add_mutually_exclusive_group(required=True)
     what.add_argument("--snn", choices=["gesture", "optical-flow"])
     what.add_argument("--arch", help="an LM (ported: rwkv6-7b), at full width")
-    what.add_argument("--quickstart", action="store_true",
-                      help="the quickstart's float forward at full width")
+    what.add_argument("--float-forward", choices=["gesture", "optical-flow"],
+                      dest="float_forward",
+                      help="the float forward at full width: the quickstart's "
+                           "(gesture) or the optical-flow walk's")
     ap.add_argument("--batch", type=int, default=2,
                     help="streams per run (--snn) or decode slots (--arch)")
-    ap.add_argument("--t-block", type=int, default=1, dest="t_block")
+    ap.add_argument("--t-block", type=int, nargs="+", default=[1], dest="t_block")
+    ap.add_argument("--n-cores", type=int, nargs="+", default=[1], dest="n_cores")
+    ap.add_argument("--weight-bits", type=int, nargs="+", default=[4],
+                    dest="weight_bits")
     ap.add_argument("--prompt-len", type=int, default=512, dest="prompt_len")
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
-    if args.quickstart:
-        print(json.dumps(profile_float_forward(args.repeats)), flush=True)
+    if args.float_forward is not None:
+        print(json.dumps(profile_float_forward(args.repeats, snn=args.float_forward)),
+              flush=True)
     elif args.arch is not None:
         for row in profile_lm(args.arch, args.prompt_len, args.batch, args.repeats):
             print(json.dumps(row), flush=True)
     else:
-        print(json.dumps(profile_run(args.snn, args.batch, args.t_block,
-                                     args.repeats)), flush=True)
+        for bits in args.weight_bits:
+            for t_block in args.t_block:
+                for n_cores in args.n_cores:
+                    print(json.dumps(profile_run(
+                        args.snn, args.batch, t_block, args.repeats,
+                        n_cores=n_cores, weight_bits=bits)), flush=True)
 
 
 if __name__ == "__main__":

@@ -58,7 +58,6 @@ _NOT_PORTED = {
     "--metrics-every": "A9 (serving fleet and obs)",
     "--trace-out": "A9 (serving fleet and obs)",
     "--log-json": "A9 (serving fleet and obs)",
-    "--n-cores": "A5 (multi-core compile)",
     "--jnp": "nothing: the port's plain backend is --torch",
 }
 
@@ -182,6 +181,10 @@ def _parser() -> argparse.ArgumentParser:
                     dest="weight_bits")
     ap.add_argument("--torch", action="store_true",
                     help="plain integer torch backend instead of the CUDA kernels")
+    ap.add_argument("--n-cores", type=int, default=1, dest="n_cores",
+                    help="SNN path: compile the network across a grid of N "
+                         "SpiDR cores (repro_torch.compiler): bit-exact "
+                         "outputs, per-core cost attribution, on one device")
     ap.add_argument("--t-block", type=int, default=1, dest="t_block",
                     help="timesteps per Vmem-stationary kernel slab (fused backend)")
     ap.add_argument("--device", default=None,
@@ -253,8 +256,12 @@ def serve_snn(args: argparse.Namespace) -> BatchWorker:
     params = init_params(torch.Generator().manual_seed(0), spec)
     target = spidr.DeployTarget(weight_bits=args.weight_bits,
                                 backend="torch" if args.torch else "fused",
-                                t_block=args.t_block)
+                                n_cores=args.n_cores, t_block=args.t_block)
     compiled = spidr.compile(spec, params, target, device=dev)
+    if compiled.schedule is not None:
+        log.info("compiled %s onto %d cores (%d channel-split layers)\n%s",
+                 spec.name, args.n_cores, compiled.schedule.n_split_layers,
+                 compiled.schedule.describe())
 
     make = make_gesture_batch if args.snn == "gesture" else make_flow_batch
     ev, _ = make(torch.Generator().manual_seed(1), batch=args.requests,

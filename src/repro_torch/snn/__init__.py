@@ -1,1 +1,1 @@
-"""Event-stream data for the SNN workloads."""
+"""Event-stream data for the SNN workloads, and the float -> integer export."""

@@ -2,8 +2,9 @@
 
 :class:`DeployTarget` holds the weight/Vmem precision pair, the core
 count, the execution backend, the streaming chunk geometry and the fused
-kernels' options.  ``spidr.compile(spec, params, target)`` turns a target
-plus a network into a :class:`~repro_torch.spidr.CompiledSNN`.
+kernels' options and the multi-core compiler's overrides.
+``spidr.compile(spec, params, target)`` turns a target plus a network into
+a :class:`~repro_torch.spidr.CompiledSNN`.
 
 Validation is eager and actionable: an unsupported setting raises
 ``ValueError`` naming the nearest supported alternative(s) — for example
@@ -48,8 +49,16 @@ class DeployTarget:
         defaults to ``2*weight_bits - 1`` and is validated when given.
 
     Topology
-        ``n_cores`` must be 1 in this port for now (multi-core plans:
-        ROADMAP A5).
+        ``n_cores`` > 1 routes the build through the multi-core compiler
+        (partition/place/schedule onto a core grid), bit-exact with
+        single-core execution.  ``device_parallel=True`` asks for the
+        cores on separate CUDA devices: it raises when the host has fewer
+        than ``n_cores`` devices, and otherwise too, as that placement is
+        not ported yet (ROADMAP A9); None or False run the plan on one
+        device.  ``force_mode`` / ``stationarity`` pin the compiler's
+        per-layer operating mode (1/2) and weight-vs-Vmem stationarity;
+        ``assumed_sparsity`` feeds its load-balancing heuristics.  They
+        move the modeled cost, never the computed spikes.
 
     Execution
         ``backend`` is ``"fused"`` (the CUDA kernels), ``"torch"`` (the
@@ -74,6 +83,11 @@ class DeployTarget:
     block: tuple = DEFAULT_BLOCK
     t_block: int = 1
     autotune: bool = False
+    # Multi-core compiler knobs.
+    device_parallel: Optional[bool] = None
+    force_mode: Optional[int] = None     # pin operating mode 1 | 2
+    stationarity: Optional[str] = None   # pin "weight" | "vmem"
+    assumed_sparsity: float = 0.9
 
     def __post_init__(self):
         w = self.weight_bits
@@ -94,10 +108,6 @@ class DeployTarget:
         _require_positive_int(
             "n_cores", self.n_cores,
             hint="1 runs single-core, 4 matches the paper's grid ablations")
-        if self.n_cores != 1:
-            raise NotImplementedError(
-                f"n_cores={self.n_cores}: multi-core plans are not ported yet "
-                "— see ROADMAP.md A5; deploy with n_cores=1")
         _require_positive_int("chunk_T", self.chunk_T,
                               hint="timesteps delivered per streaming tick")
         _require_positive_int("stream_capacity", self.stream_capacity,
@@ -109,7 +119,27 @@ class DeployTarget:
             raise NotImplementedError(
                 "autotune=True: per-layer kernel-config autotuning is not "
                 "ported yet — see ROADMAP.md A8; set t_block instead")
+        if self.force_mode is not None and self.force_mode not in (1, 2):
+            raise ValueError(
+                f"force_mode={self.force_mode!r} unsupported — the macro "
+                "has operating modes 1 (fan-in <= 128) and 2 (serialized "
+                "high fan-in); pass 1, 2 or None (auto)")
+        if self.stationarity is not None \
+                and self.stationarity not in ("weight", "vmem"):
+            raise ValueError(
+                f"stationarity={self.stationarity!r} unsupported — pass "
+                "'weight', 'vmem' or None (let the compiler's cost model "
+                "choose per layer)")
+        if not 0.0 <= self.assumed_sparsity < 1.0:
+            raise ValueError(
+                f"assumed_sparsity={self.assumed_sparsity!r} unsupported — "
+                "needs 0.0 <= s < 1.0 (it feeds the compiler's load-"
+                "balancing heuristics; 0.9 matches DVS event streams)")
 
     @property
     def qspec(self) -> QuantSpec:
         return QuantSpec(self.weight_bits)
+
+    @property
+    def multicore(self) -> bool:
+        return self.n_cores > 1

@@ -26,11 +26,12 @@ def jax_ref():
         import jax
         import jax.numpy as jnp
 
-        from repro import spidr, serving
+        from repro import compiler, spidr, serving
+        from repro.checkpoint import checkpoint
         from repro.configs import base as lm_configs
         from repro.configs import spidr_gesture, spidr_optflow
         from repro.core import (cim_macro, energy, layers, modes, network, neuron,
-                                pipeline, quant)
+                                pipeline, quant, s2a, zero_skip)
         from repro.engine import cost, inference
         from repro.kernels import (fused_lif_gemm, lif_step, quant_matmul, ref,
                                    spike_gemm, wkv_chunk)
@@ -38,7 +39,8 @@ def jax_ref():
         from repro.models import common as lm_common
         from repro.models import model as lm_model
         from repro.models import rwkv6, transformer
-        from repro.snn import data
+        from repro.obs import timeline
+        from repro.snn import data, export
     return types.SimpleNamespace(
         jax=jax, jnp=jnp, spidr=spidr, serving=serving, quant=quant,
         neuron=neuron, layers=layers, network=network, engine=inference,
@@ -48,7 +50,9 @@ def jax_ref():
         spidr_gesture=spidr_gesture, spidr_optflow=spidr_optflow,
         lm_configs=lm_configs, lm_common=lm_common, rwkv6=rwkv6,
         transformer=transformer, lm_model=lm_model, wkv_chunk=wkv_chunk,
-        quant_matmul=quant_matmul, lm_serve=lm_serve)
+        quant_matmul=quant_matmul, lm_serve=lm_serve, compiler=compiler,
+        s2a=s2a, zero_skip=zero_skip, timeline=timeline, export=export,
+        checkpoint=checkpoint)
 
 
 @pytest.fixture

@@ -47,7 +47,7 @@ def test_mode_capacity_helpers(jax_ref, bits):
     assert modes.max_output_neurons_conv_mode1(quant.QuantSpec(bits)) == \
         jax_ref.modes.max_output_neurons_conv_mode1(jax_ref.quant.QuantSpec(bits))
     assert modes.max_input_neurons_fc_mode2() == jax_ref.modes.max_input_neurons_fc_mode2()
-    with pytest.raises(ValueError, match="ROADMAP A5"):
+    with pytest.raises(ValueError, match="compiler.compile_network"):
         modes.map_layer(modes.LayerShape.fc(64, 11),
                         modes.CoreConfig(quant.QuantSpec(bits), n_cores=2))
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_same, cuda_device, jax_ref  # noqa: F401
+from repro_torch.compiler import compile_network
 from repro_torch.configs import spidr_gesture, spidr_optflow
 from repro_torch.convert import params_from_jax
 from repro_torch.core.quant import QuantSpec
@@ -196,8 +197,16 @@ def test_engine_config_validation():
         E.EngineConfig(QuantSpec(4), backend="jnp")
     with pytest.raises(ValueError, match="t_block"):
         E.EngineConfig(QuantSpec(4), t_block=0)
-    with pytest.raises(NotImplementedError, match="A5"):
-        E.compile_engine(None, None)
+    spec = spidr_gesture.reduced(hw=(8, 8), timesteps=1)
+    params = params_from_jax([None if l.kind not in ("conv", "fc") else
+                              np.ones((9 * l.c_in if l.kind == "conv" else l.c_in,
+                                       l.c_out), np.float32) for l in spec.layers], "cpu")
+    engine = E.build_engine(spec, params, E.EngineConfig(QuantSpec(4)), device="cpu")
+    with pytest.raises(ValueError, match="precision"):
+        E.compile_engine(engine, compile_network(spec, n_cores=2, qspec=QuantSpec(8)))
+    plan = E.compile_engine(engine, compile_network(spec, n_cores=2, qspec=QuantSpec(4)))
+    with pytest.raises(ValueError, match="already carries a schedule"):
+        E.compile_engine(plan, plan.schedule)
 
 
 @pytest.mark.gpu

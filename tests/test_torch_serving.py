@@ -2,7 +2,10 @@
 against the JAX package, plus the port's package rules (no JAX imports,
 no silent CPU fallback, unported flags rejected by name)."""
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -144,8 +147,9 @@ def test_deploy_target_validation():
         spidr.DeployTarget(weight_bits=5, vmem_bits=9)
     with pytest.raises(ValueError, match="backend"):
         spidr.DeployTarget(backend="jnp")
-    with pytest.raises(NotImplementedError, match="A5"):
-        spidr.DeployTarget(n_cores=4)
+    assert spidr.DeployTarget(n_cores=4).multicore
+    with pytest.raises(ValueError, match="force_mode"):
+        spidr.DeployTarget(n_cores=4, force_mode=3)
     with pytest.raises(NotImplementedError, match="A8"):
         spidr.DeployTarget(autotune=True)
     with pytest.raises(ValueError, match="t_block"):
@@ -158,7 +162,7 @@ def test_deploy_target_validation():
     (["--snn", "gesture", "--chunk-T", "2"], "A7"),
     (["--snn", "gesture", "--replicas", "2"], "A9"),
     (["--snn", "gesture", "--trace-out", "x.json"], "A9"),
-    (["--snn", "gesture", "--n-cores", "4"], "A5"),
+    (["--snn", "gesture", "--metrics-out", "m.json"], "A9"),
     (["--arch", "qwen1.5-0.5b"], "A12"),
     ([], "A12"),
 ])
@@ -193,4 +197,16 @@ def test_port_imports_neither_jax_nor_repro():
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
+    # Importing the subpackages (and what they import at run time) in a
+    # fresh interpreter loads neither package.
+    code = ("import sys; import repro_torch.compiler, repro_torch.checkpoint, "
+            "repro_torch.obs, repro_torch.snn.export, repro_torch.spidr, "
+            "repro_torch.launch.optical_flow; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
 
