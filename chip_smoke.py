@@ -94,6 +94,8 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -189,6 +191,8 @@ def main() -> int:
               "of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    if sys.argv[1:2] == ["--flow-restore-child"]:
+        return _flow_restore_child(torch, sys.argv[2:])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -213,6 +217,11 @@ def main() -> int:
     phase_flow(torch, dev)
     launches = dict(kernels.LAUNCHES)
     kernels.reset_launches()
+    streams = phase_streaming(torch, dev, kernels)
+    launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
+    check_streaming(torch, dev, kernels, streams)
+    del streams
+    kernels.reset_launches()
     quick = phase_quickstart(torch, dev)
     launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
     check_quickstart(torch, dev, quick, results)
@@ -226,7 +235,7 @@ def main() -> int:
     phase_lm(torch, dev, kernels, lm)
     launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
     emit({"phase": "launches",
-          "paths": "gesture + flow + quickstart + optical_flow walk + lm",
+          "paths": "gesture + flow + streaming + quickstart + optical_flow walk + lm",
           "launches": launches})
     check_lm(torch, dev, lm)
     for name in KERNEL_INFO:
@@ -841,6 +850,347 @@ def phase_flow(torch, dev):
               "readout_abs_sum": int(out.readout.abs().sum()),
               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
               "bit_exact_vs_torch": True})
+
+
+# ---------------------------------------------------------------------------
+# 4b. streaming at full width: StreamWorker, snapshots, migration, the drill
+# ---------------------------------------------------------------------------
+STREAM_SEED = 1
+# (net, t_block, chunk_T): gesture at capacity 4 with 6 streams (slots
+# retire and are reused), optical flow at capacity 2 with 3 streams, each
+# once on B1 (t_block 1) and once on B2.
+STREAM_RUNS = (("gesture", 1, 2), ("gesture", 4, 4),
+               ("optical-flow", 5, 5), ("optical-flow", 1, 5))
+STREAM_GEOMETRY = {"gesture": {"capacity": 4, "streams": 6},
+                   "optical-flow": {"capacity": 2, "streams": 3}}
+
+
+def _stream_inputs(torch, net):
+    """The net's spec, random params (seed 0) and ``(T, N, H, W, 2)`` events."""
+    from repro_torch.configs import spidr_gesture, spidr_optflow
+    from repro_torch.core.network import init_params
+    from repro_torch.snn.data import make_flow_batch, make_gesture_batch
+
+    spec = (spidr_gesture if net == "gesture" else spidr_optflow).CONFIG
+    make = make_gesture_batch if net == "gesture" else make_flow_batch
+    events, _ = make(torch.Generator().manual_seed(STREAM_SEED),
+                     batch=STREAM_GEOMETRY[net]["streams"],
+                     timesteps=spec.timesteps, hw=spec.input_hw, device="cpu")
+    return spec, init_params(torch.Generator().manual_seed(0), spec), events.numpy()
+
+
+def _stream_compile(dev, net, spec, params, backend, t_block, chunk_T):
+    from repro_torch import spidr
+
+    return spidr.compile(spec, params, spidr.DeployTarget(
+        weight_bits=4, backend=backend, t_block=t_block, chunk_T=chunk_T,
+        stream_capacity=STREAM_GEOMETRY[net]["capacity"]), device=dev)
+
+
+def _serve_streams(kernels, compiled, events, snapshot_dir=None, on_tick=None):
+    """Every stream through one StreamWorker; returns the worker, each
+    tick's host ms (the step, its rewind mark included) and the B1/B2
+    launches of the worker's own ticks."""
+    from repro_torch.serving import StreamRequest, StreamWorker
+
+    worker = StreamWorker(compiled, capacity=compiled.target.stream_capacity,
+                          chunk_T=compiled.target.chunk_T,
+                          snapshot_dir=snapshot_dir)
+    for rid in range(events.shape[1]):
+        worker.submit(StreamRequest(rid=rid, events=events[:, rid]))
+    tick_ms, launches = [], dict.fromkeys(INT_KERNELS, 0)
+    while True:
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        alive = worker.step()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+        for k in INT_KERNELS:
+            launches[k] += kernels.LAUNCHES[k] - before[k]
+        if not alive:
+            break
+        if on_tick is not None:
+            on_tick(worker)
+    return worker, tick_ms[:-1], launches
+
+
+def _same_streams(a: dict, b: dict, what: str) -> None:
+    """Two ``{rid: StreamRequest}`` results, byte for byte."""
+    check(sorted(a) == sorted(b), f"{what}: streams {sorted(a)} != {sorted(b)}")
+    for rid, x in a.items():
+        y = b[rid]
+        check(x.readout.dtype == y.readout.dtype
+              and x.readout.tobytes() == y.readout.tobytes(),
+              f"{what}: stream {rid} readout differs")
+        check((x.spikes, x.cycles, x.energy_uj) == (y.spikes, y.cycles, y.energy_uj),
+              f"{what}: stream {rid} spikes/cycles/energy "
+              f"{(x.spikes, x.cycles, x.energy_uj)} != {(y.spikes, y.cycles, y.energy_uj)}")
+
+
+def _flow_restore_child(torch, argv) -> int:
+    """``chip_smoke.py --flow-restore-child SNAP OUT DEVICE``: in a fresh
+    process, ``StreamWorker.restore`` the snapshot on ``DEVICE`` and serve
+    to the end; the readouts go to ``OUT`` (.npz), the rest to stdout as
+    JSON."""
+    import numpy as np
+
+    from repro_torch.serving import StreamRequest, StreamWorker
+
+    snap, out, device = argv
+    _, _, events = _stream_inputs(torch, "optical-flow")
+    reqs = {rid: StreamRequest(rid=rid, events=events[:, rid])
+            for rid in range(events.shape[1])}
+    t0 = time.perf_counter()
+    worker = StreamWorker.restore(snap, reqs, device=device)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    resumed = worker.ticks
+    while worker.step():
+        pass
+    np.savez(out, **{str(r.rid): r.readout for r in worker.done})
+    print(json.dumps({"restore_s": restore_s, "resumed_at_tick": resumed,
+                      "final_tick": worker.ticks,
+                      "streams": {str(r.rid): [r.spikes, r.cycles, r.energy_uj]
+                                  for r in worker.done}}), flush=True)
+    return 0
+
+
+def _restore_in_child(torch, dev, snap: str, ref: dict) -> dict:
+    """Resume the flow snapshot in a child process; its results must be
+    byte-identical with the uninterrupted run's ``ref``."""
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory(prefix="spidr_restore_") as tmp:
+        out = os.path.join(tmp, "readouts.npz")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--flow-restore-child", snap, out, str(dev)],
+                             capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        check(res.returncode == 0, f"flow restore child exited {res.returncode}: "
+              f"{res.stderr[-2000:]}")
+        info = json.loads(res.stdout.strip().splitlines()[-1])
+        with np.load(out) as readouts:
+            got = {int(rid): readouts[rid] for rid in readouts.files}
+    check(sorted(got) == sorted(ref), f"flow restore: streams {sorted(got)}")
+    for rid, req in ref.items():
+        check(got[rid].dtype == req.readout.dtype
+              and got[rid].tobytes() == req.readout.tobytes(),
+              f"flow restore: stream {rid} readout differs from the "
+              "uninterrupted run")
+        check(info["streams"][str(rid)] == [req.spikes, req.cycles, req.energy_uj],
+              f"flow restore: stream {rid} spikes/cycles/energy "
+              f"{info['streams'][str(rid)]} != "
+              f"{[req.spikes, req.cycles, req.energy_uj]}")
+    return {"restore_s": info["restore_s"], "child_s": child_s,
+            "resumed_at_tick": info["resumed_at_tick"],
+            "final_tick": info["final_tick"]}
+
+
+def phase_streaming(torch, dev, kernels) -> list:
+    """Serve every run of ``STREAM_RUNS`` through a StreamWorker at full
+    width; flow runs also snapshot after tick 1 and migrate a live stream
+    (``export_slot`` -> ``import_slot``) into a second session that serves
+    it to the end beside the first.  Returns one record per run; the checks
+    (whole-stream runs, backend="torch", the child restore) come after the
+    launch counts are read."""
+    import tempfile
+
+    runs = []
+    for net, t_block, chunk_T in STREAM_RUNS:
+        spec, params, events = _stream_inputs(torch, net)
+        compiled = _stream_compile(dev, net, spec, params, "fused", t_block, chunk_T)
+        rec = {"net": net, "t_block": t_block, "chunk_T": chunk_T,
+               "capacity": compiled.target.stream_capacity,
+               "streams": events.shape[1], "hw": list(spec.input_hw),
+               "T": spec.timesteps, "compiled": compiled, "events": events,
+               "spec": spec, "params": params}
+        migration = {}
+        snap = None
+        if net == "optical-flow":
+            snap = tempfile.mkdtemp(prefix="spidr_flow_snap_")
+
+            def on_tick(worker, migration=migration):
+                if worker.ticks == 1:
+                    t0 = time.perf_counter()
+                    worker.save_snapshot()
+                    migration["snapshot_s"] = time.perf_counter() - t0
+                    slot = max(worker.slots)
+                    req = worker.slots[slot]
+                    twin = compiled.open_stream()
+                    migration.update(
+                        rid=req.rid, twin=twin, cursor=req.cursor,
+                        slot=twin.import_slot(worker.sessions.export_slot(slot)))
+                elif "twin" in migration and migration["cursor"] < spec.timesteps:
+                    lo = migration["cursor"]
+                    chunk = events[lo:lo + chunk_T, migration["rid"]]
+                    migration["last"] = migration["twin"].step(
+                        {migration["slot"]: chunk})[migration["slot"]]
+                    migration["cursor"] += chunk.shape[0]
+        else:
+            on_tick = None
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        worker, tick_ms, launches = _serve_streams(
+            kernels, compiled, events, snapshot_dir=snap, on_tick=on_tick)
+        torch.cuda.synchronize(dev)
+        rec.update(serve_s=time.perf_counter() - t0, worker=worker,
+                   tick_ms=tick_ms, launches=launches, snap=snap,
+                   migration=migration)
+        runs.append(rec)
+    return runs
+
+
+def _tick_events(run):
+    """One tick's packed ``(chunk_T, capacity, H, W, C)`` int8 events: the
+    first chunk of the first ``capacity`` streams."""
+    import numpy as np
+
+    cap, ct = run["capacity"], run["chunk_T"]
+    return np.ascontiguousarray(run["events"][:ct, :cap]).astype(np.int8)
+
+
+def check_streaming(torch, dev, kernels, runs) -> None:
+    """Every run: each stream equal to a whole-stream ``CompiledSNN.run`` +
+    ``cost`` of that stream alone (readout, spikes, cycles; energy, which
+    the session sums chunk by chunk, within 1e-12 relative) and byte-equal
+    to the same serving on backend="torch"; B1/B2 launches equal to the
+    whole-stream batches' and to ticks x layers x (timesteps or slabs) per
+    tick.  Flow runs: the snapshot resumed in a child process and the
+    migrated stream, byte-identical.  Then the times, and the drill."""
+    from repro_torch.engine import init_state, run_chunk
+
+    for run in runs:
+        net, t_block, chunk_T = run["net"], run["t_block"], run["chunk_T"]
+        compiled, events, worker = run["compiled"], run["events"], run["worker"]
+        what = f"streaming {net} t_block={t_block} chunk_T={chunk_T}"
+        t0 = time.perf_counter()
+        done = {r.rid: r for r in worker.done}
+        check(len(done) == run["streams"] and not worker.slots,
+              f"{what}: {len(done)} of {run['streams']} streams served")
+        max_rel = 0.0
+        for rid, req in done.items():
+            out = compiled.run(torch.from_numpy(events[:, rid:rid + 1]))
+            cost = compiled.cost(out)
+            want = out.readout[0].cpu().numpy()
+            check(req.readout.shape == want.shape
+                  and req.readout.tobytes() == want.tobytes(),
+                  f"{what}: stream {rid} readout differs from the whole-stream run")
+            check(req.spikes == int(out.spike_counts.sum()),
+                  f"{what}: stream {rid} spikes {req.spikes} != whole-stream "
+                  f"{int(out.spike_counts.sum())}")
+            check(req.cycles == cost.makespan_cycles,
+                  f"{what}: stream {rid} cycles {req.cycles} != whole-stream "
+                  f"{cost.makespan_cycles}")
+            rel = abs(req.energy_uj - cost.energy_uj) / cost.energy_uj
+            max_rel = max(max_rel, rel)
+            check(rel <= 1e-12, f"{what}: stream {rid} energy {req.energy_uj} vs "
+                  f"whole-stream {cost.energy_uj}")
+        plain = _stream_compile(dev, net, run["spec"], run["params"], "torch",
+                                t_block, chunk_T)
+        plain_worker, _, _ = _serve_streams(kernels, plain, events)
+        _same_streams(done, {r.rid: r for r in plain_worker.done},
+                      f"{what} vs backend='torch'")
+        # Launches: the whole-stream batches of `capacity` streams.
+        cap = run["capacity"]
+        before = dict(kernels.LAUNCHES)
+        for b0 in range(0, run["streams"], cap):
+            compiled.run(torch.from_numpy(events[:, b0:b0 + cap]))
+        batch_launches = {k: kernels.LAUNCHES[k] - before[k] for k in INT_KERNELS}
+        layers = sum(1 for el in compiled.engine.layers if el.kind in ("conv", "fc"))
+        per_tick = chunk_T if t_block == 1 else -(-chunk_T // t_block)
+        kernel = INT_KERNELS[0] if t_block == 1 else INT_KERNELS[1]
+        expect = {k: 0 for k in INT_KERNELS}
+        expect[kernel] = worker.ticks * layers * per_tick
+        check(run["launches"] == batch_launches == expect,
+              f"{what}: launches {run['launches']}, whole-stream batches "
+              f"{batch_launches}, expected {expect}")
+        record = {"phase": "streaming", "net": net, "t_block": t_block,
+                  "chunk_T": chunk_T, "capacity": cap, "streams": run["streams"],
+                  "hw": run["hw"], "T": run["T"], "ticks": worker.ticks,
+                  "weight_layers": layers, "launches": run["launches"],
+                  "whole_stream_batch_launches": batch_launches,
+                  "serve_s": run["serve_s"],
+                  "host_ms_per_tick_median": statistics.median(run["tick_ms"]),
+                  "host_ms_per_tick": run["tick_ms"],
+                  "energy_max_rel_diff_vs_whole_stream": max_rel,
+                  "bit_exact_vs_whole_stream": True, "bit_exact_vs_torch": True}
+        if net == "optical-flow":
+            mig = run["migration"]
+            check(mig.get("cursor") == run["T"] and "last" in mig,
+                  f"{what}: the migrated stream did not run to its end")
+            last, req = mig["last"], done[mig["rid"]]
+            check(last.readout.tobytes() == req.readout.tobytes()
+                  and (last.spikes, last.cycles, last.energy_uj)
+                  == (req.spikes, req.cycles, req.energy_uj),
+                  f"{what}: the migrated stream {mig['rid']} differs from the "
+                  "never-migrated one")
+            try:
+                record.update(
+                    snapshot_write_s=mig["snapshot_s"], migrated_stream=mig["rid"],
+                    migration_bit_exact=True,
+                    snapshot_bytes=sum(os.path.getsize(os.path.join(d, f))
+                                       for d, _, fs in os.walk(run["snap"])
+                                       for f in fs),
+                    child_restore=_restore_in_child(torch, dev, run["snap"], done))
+            finally:
+                shutil.rmtree(run["snap"], ignore_errors=True)
+        # Device time of one tick (CUDA events around run_chunk at the
+        # tick's shapes) and the per-tick rewind mark's state_dict.
+        ev = torch.from_numpy(_tick_events(run)).to(dev)
+        state = init_state(compiled.engine, cap)
+        record["device_ms_per_tick"] = _time_ms(torch, lambda: run_chunk(
+            compiled.engine, state, ev, collect_counts=True,
+            collect_readouts=True), 5)
+        sd_ms = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            sd = worker.sessions.state_dict()
+            sd_ms.append(1e3 * (time.perf_counter() - t1))
+        record.update(state_dict_ms_median=statistics.median(sd_ms),
+                      state_dict_ms=sd_ms, state_dict_mb=_tree_bytes(sd) / 1e6,
+                      check_s=time.perf_counter() - t0)
+        emit(record)
+        del run["worker"], run["compiled"], plain, plain_worker, state, ev
+    emit(_drill(torch))
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return 0 if tree is None else int(getattr(tree, "nbytes", 0))
+
+
+def _drill(torch) -> dict:
+    """``tools/upgrade_drill_torch.py`` on gesture at full width, 4 cores,
+    fused, on the card: SIGKILL mid-tick, restore, compare."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="spidr_drill_report_") as tmp:
+        out = os.path.join(tmp, "drill.json")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools", "upgrade_drill_torch.py"),
+             "--full", "--task", "gesture", "--n-cores", "4", "--backend", "fused",
+             "--out", out], capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        check(res.returncode == 0, f"drill exited {res.returncode}: "
+              f"{res.stdout[-1500:]} {res.stderr[-1500:]}")
+        with open(out) as f:
+            report = json.load(f)
+    check(report["ok"] and len(report["configs"]) == 1, "drill: not ok")
+    cfg = report["configs"][0]
+    return {"phase": "streaming_drill", "seconds": seconds,
+            **{k: cfg[k] for k in ("task", "n_cores", "backend", "device", "hw",
+                                   "timesteps", "capacity", "chunk_T",
+                                   "n_streams", "ticks", "die_at_tick",
+                                   "resumed_at_tick", "serve_returncode",
+                                   "reference_s", "serve_child_s",
+                                   "restore_child_s", "restore_s")},
+            "streams_bit_exact": cfg["streams"], "lost_streams": cfg["lost_streams"]}
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The integer SNN inference engine (single- and multi-core plans) and its
-chip cost models."""
+"""The integer SNN inference engine (single- and multi-core plans), its
+chip cost models and the persistent-Vmem streaming sessions."""
 from .cost import EngineCost, MulticoreCost, estimate_cost, estimate_multicore_cost
 from .inference import (
     BACKENDS,
@@ -17,3 +17,4 @@ from .inference import (
     run_engine,
     run_reference,
 )
+from .streaming import SESSION_SCHEMA_VERSION, SlotUpdate, StreamSessionManager

@@ -3,6 +3,7 @@
     python -m repro_torch.launch.profile --snn optical-flow --batch 2 --t-block 1
     python -m repro_torch.launch.profile --snn optical-flow --n-cores 1 4 --weight-bits 4 8 --t-block 1 5
     python -m repro_torch.launch.profile --snn gesture --batch 4 --t-block 4
+    python -m repro_torch.launch.profile --snn optical-flow --stream --batch 2 --chunk-T 5 --t-block 5 1
     python -m repro_torch.launch.profile --arch rwkv6-7b --prompt-len 512 --batch 4
     python -m repro_torch.launch.profile --float-forward gesture
     python -m repro_torch.launch.profile --float-forward optical-flow
@@ -11,7 +12,11 @@
 kernels, random weights from a fixed seed) and profiles one
 ``CompiledSNN.run`` for every combination of ``--n-cores`` (a compiled
 multi-core plan above 1), ``--weight-bits`` and ``--t-block`` given
-(default: 1 core, 4-bit, ``t_block=1``), one line each.  ``--arch``:
+(default: 1 core, 4-bit, ``t_block=1``), one line each; with ``--stream``
+one steady-state tick of a ``StreamWorker`` instead (``--batch`` live
+streams in as many slots, ``--chunk-T`` timesteps per tick, the per-tick
+rewind mark included), with the device time of the host copies and the
+host time of one ``state_dict``.  ``--arch``:
 builds the LM at full published width (random weights from a fixed seed,
 bfloat16 serving copies) and profiles one prefill of ``--prompt-len``
 tokens (one request, as the server admits them) and one decode step over
@@ -149,6 +154,46 @@ def profile_run(snn: str, batch: int, t_block: int, repeats: int,
             "weight_bits": weight_bits, **res}
 
 
+def profile_stream(snn: str, capacity: int, chunk_T: int, t_block: int,
+                   repeats: int, device=None) -> dict:
+    """Steady-state ticks of a :class:`~repro_torch.serving.StreamWorker`
+    on the full-width network: ``capacity`` streams, all live for every
+    measured tick (each stream is the event batch repeated in time)."""
+    import numpy as np
+
+    from ..serving import StreamRequest, StreamWorker
+
+    dev = _card(device)
+    spec = (spidr_gesture if snn == "gesture" else spidr_optflow).CONFIG
+    params = init_params(torch.Generator().manual_seed(0), spec)
+    compiled = spidr.compile(spec, params, spidr.DeployTarget(
+        backend="fused", t_block=t_block, chunk_T=chunk_T,
+        stream_capacity=capacity), device=dev)
+    make = make_gesture_batch if snn == "gesture" else make_flow_batch
+    events, _ = make(torch.Generator().manual_seed(1), batch=capacity,
+                     timesteps=spec.timesteps, hw=spec.input_hw, device="cpu")
+    ticks = repeats + 3   # warm-up, repeats, the profiled tick, one spare
+    events = np.concatenate([events.numpy()] * -(-ticks * chunk_T // spec.timesteps))
+    worker = StreamWorker(compiled, capacity=capacity, chunk_T=chunk_T)
+    for rid in range(capacity):
+        worker.submit(StreamRequest(rid=rid, events=events[:, rid]))
+    res = _measure(worker.step, dev, repeats)
+    by_kernel = res.pop("by_kernel")
+    sd_ms = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        sd = worker.sessions.state_dict()
+        sd_ms.append((time.perf_counter() - t0) * 1e3)
+    sd_bytes = sum(getattr(v, "nbytes", 0) for v in (
+        sd["engine_state"]["vmem"] + [sd["engine_state"]["readout_acc"]]))
+    copies = [(n, us) for k, (n, us) in by_kernel.items() if "memcpy" in k.lower()]
+    return {"snn": snn, "workload": "stream_tick", "hw": list(spec.input_hw),
+            "capacity": capacity, "chunk_T": chunk_T, "t_block": t_block, **res,
+            "copies": sum(n for n, _ in copies),
+            "copy_ms": sum(us for _, us in copies) / 1e3,
+            "state_dict_ms": sd_ms, "state_dict_mb": sd_bytes / 1e6}
+
+
 def profile_float_forward(repeats: int, device=None, snn: str = "gesture") -> dict:
     """The float forward at full width: the quickstart's (gesture net,
     64x64, T=10, batch 4) or the optical-flow walk's (288x384, T=10,
@@ -193,6 +238,10 @@ def main(argv=None) -> None:
     ap.add_argument("--n-cores", type=int, nargs="+", default=[1], dest="n_cores")
     ap.add_argument("--weight-bits", type=int, nargs="+", default=[4],
                     dest="weight_bits")
+    ap.add_argument("--stream", action="store_true",
+                    help="--snn: profile a StreamWorker tick, not a run")
+    ap.add_argument("--chunk-T", type=int, default=2, dest="chunk_T",
+                    help="--stream: timesteps per tick")
     ap.add_argument("--prompt-len", type=int, default=512, dest="prompt_len")
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
@@ -202,6 +251,10 @@ def main(argv=None) -> None:
     elif args.arch is not None:
         for row in profile_lm(args.arch, args.prompt_len, args.batch, args.repeats):
             print(json.dumps(row), flush=True)
+    elif args.stream:
+        for t_block in args.t_block:
+            print(json.dumps(profile_stream(args.snn, args.batch, args.chunk_T,
+                                            t_block, args.repeats)), flush=True)
     else:
         for bits in args.weight_bits:
             for t_block in args.t_block:

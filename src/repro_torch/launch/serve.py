@@ -5,6 +5,8 @@
     python -m repro_torch.launch.serve --snn gesture --requests 8 --capacity 4
     python -m repro_torch.launch.serve --snn optical-flow --requests 2 --capacity 2 --t-block 5
     python -m repro_torch.launch.serve --snn gesture --torch --device cpu
+    python -m repro_torch.launch.serve --snn gesture --streaming --chunk-T 2 --snapshot-dir snap --snapshot-every 1
+    python -m repro_torch.launch.serve --snn gesture --streaming --device cpu --metrics-out m.prom --trace-out t.json
 
 LM (``--arch``): the model with random weights from a fixed seed, at its
 full published width unless ``--reduced`` asks for the CPU-sized config
@@ -16,9 +18,16 @@ Only ``rwkv6-7b`` (the ``ssm`` family) is ported.
 
 SNN (``--snn``): the paper's Table II network at full width with random
 weights from a fixed seed.  One ``DeployTarget`` declares the precision,
-backend and ``t_block``; the ``CompiledSNN`` serves whole streams through
-a :class:`~repro_torch.serving.BatchWorker`: requests are packed into
-fixed-capacity batches and each batch is one engine run.
+backend and ``t_block``.  Without ``--streaming`` the ``CompiledSNN``
+serves whole streams through a :class:`~repro_torch.serving.BatchWorker`:
+requests are packed into fixed-capacity batches and each batch is one
+engine run.  With ``--streaming`` one
+:class:`~repro_torch.serving.StreamWorker` serves them as live streams:
+``--capacity`` persistent-Vmem slots advanced ``--chunk-T`` timesteps per
+tick, incremental replies, ``--watchdog-s`` rewind-and-replay and
+``--snapshot-dir``/``--snapshot-every`` snapshots.  ``--metrics-out``
+(``--metrics-every``), ``--trace-out`` and ``--log-json`` switch on the
+``repro_torch.obs`` telemetry.
 
 Flags of the JAX CLI whose code is not ported yet exit with an error that
 names the ROADMAP item that ports them.
@@ -35,29 +44,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import resolve_device, spidr
+from .. import obs, resolve_device, spidr
 from ..configs import spidr_gesture, spidr_optflow
 from ..configs.base import get_config
 from ..core.network import init_params
 from ..models import model as M
 from ..models.transformer import init_decode_state
-from ..serving import BatchWorker, StreamRequest
+from ..serving import BatchWorker, StreamRequest, StreamWorker
 from ..snn.data import make_flow_batch, make_gesture_batch
 
 log = logging.getLogger("repro_torch.serve")
 
 # Flags of ``repro.launch.serve`` that this port does not serve yet.
 _NOT_PORTED = {
-    "--streaming": "A7 (streaming sessions)",
-    "--chunk-T": "A7 (streaming sessions)",
-    "--watchdog-s": "A7 (streaming sessions)",
-    "--snapshot-dir": "A7 (streaming sessions)",
-    "--snapshot-every": "A7 (streaming sessions)",
     "--replicas": "A9 (serving fleet)",
-    "--metrics-out": "A9 (serving fleet and obs)",
-    "--metrics-every": "A9 (serving fleet and obs)",
-    "--trace-out": "A9 (serving fleet and obs)",
-    "--log-json": "A9 (serving fleet and obs)",
     "--jnp": "nothing: the port's plain backend is --torch",
 }
 
@@ -190,6 +190,36 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain PyTorch kernels)")
+    ap.add_argument("--streaming", action="store_true",
+                    help="SNN path: stateful streaming serving — events "
+                         "arrive in chunks, Vmem persists per slot between "
+                         "chunks, replies are incremental")
+    ap.add_argument("--chunk-T", type=int, default=2, dest="chunk_T",
+                    help="timesteps per delivered chunk in --streaming mode")
+    ap.add_argument("--watchdog-s", type=float, default=None,
+                    dest="watchdog_s",
+                    help="--streaming: per-tick watchdog deadline; a hung "
+                         "tick rewinds to the last completed tick and replays")
+    ap.add_argument("--snapshot-dir", default=None, dest="snapshot_dir",
+                    help="--streaming: persist the full serving state here "
+                         "(weights + live sessions + cursors)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    dest="snapshot_every",
+                    help="--streaming: snapshot every N ticks (0 = never)")
+    ap.add_argument("--metrics-out", default=None, dest="metrics_out",
+                    help="enable metrics and write the final dump here "
+                         "(.json -> JSON, else Prometheus text)")
+    ap.add_argument("--metrics-every", type=int, default=0,
+                    dest="metrics_every",
+                    help="--streaming: also rewrite --metrics-out every N "
+                         "ticks (0 = only at the end)")
+    ap.add_argument("--trace-out", default=None, dest="trace_out",
+                    help="enable span tracing and export a Chrome-trace/"
+                         "Perfetto JSON (serving spans; multi-core runs add "
+                         "per-stream pipeline timelines)")
+    ap.add_argument("--log-json", action="store_true", dest="log_json",
+                    help="one JSON object per log record (each carries the "
+                         "stream request id)")
     return ap
 
 
@@ -249,14 +279,25 @@ def serve_lm(args: argparse.Namespace) -> Server:
     return server
 
 
-def serve_snn(args: argparse.Namespace) -> BatchWorker:
-    """Compile the network, submit ``args.requests`` streams, serve them."""
+def serve_snn(args: argparse.Namespace):
+    """Compile the network, submit ``args.requests`` streams, serve them.
+
+    Returns the :class:`BatchWorker`, or with ``--streaming`` the
+    :class:`StreamWorker` (shut down, results on ``done``).
+    """
     dev = resolve_device(args.device)
     spec = (spidr_gesture if args.snn == "gesture" else spidr_optflow).CONFIG
+    # Telemetry opt-in precedes compile, so every span lands in one trace.
+    if args.metrics_out:
+        obs.enable_metrics()
+    if args.trace_out:
+        obs.enable_tracing()
     params = init_params(torch.Generator().manual_seed(0), spec)
     target = spidr.DeployTarget(weight_bits=args.weight_bits,
                                 backend="torch" if args.torch else "fused",
-                                n_cores=args.n_cores, t_block=args.t_block)
+                                n_cores=args.n_cores, t_block=args.t_block,
+                                chunk_T=args.chunk_T,
+                                stream_capacity=args.capacity)
     compiled = spidr.compile(spec, params, target, device=dev)
     if compiled.schedule is not None:
         log.info("compiled %s onto %d cores (%d channel-split layers)\n%s",
@@ -266,6 +307,12 @@ def serve_snn(args: argparse.Namespace) -> BatchWorker:
     make = make_gesture_batch if args.snn == "gesture" else make_flow_batch
     ev, _ = make(torch.Generator().manual_seed(1), batch=args.requests,
                  timesteps=spec.timesteps, hw=spec.input_hw, device="cpu")
+    # Per-stream pipeline timelines need per-chunk input counts, which only
+    # a multi-core plan prices per core.
+    want_timeline = bool(args.trace_out) and compiled.schedule is not None
+    if args.streaming:
+        return _serve_streams(args, compiled, ev, dev, want_timeline)
+
     worker = BatchWorker(compiled, capacity=args.capacity)
     for r in range(args.requests):
         worker.submit(StreamRequest(rid=r, events=ev[:, r].numpy()))
@@ -282,13 +329,79 @@ def serve_snn(args: argparse.Namespace) -> BatchWorker:
              spec.input_hw[0], spec.input_hw[1], spec.timesteps, dt,
              len(worker.done) / dt, worker.batches, float(np.median(lat)),
              compiled.engine.cfg.backend, args.t_block, dev)
+    mean_counts = worker.total_input_counts / max(len(worker.done), 1)
+    _export_telemetry(compiled, args.metrics_out, args.trace_out,
+                      [("batch-mean", mean_counts)] if want_timeline else [])
     return worker
 
 
+def _serve_streams(args, compiled, ev, dev, want_timeline) -> StreamWorker:
+    """``--streaming``: every request through one :class:`StreamWorker`."""
+    spec = compiled.spec
+    worker = StreamWorker(compiled, capacity=args.capacity,
+                          chunk_T=args.chunk_T, watchdog_s=args.watchdog_s,
+                          snapshot_dir=args.snapshot_dir,
+                          snapshot_every=args.snapshot_every,
+                          collect_chunk_counts=want_timeline)
+    for r in range(args.requests):
+        worker.submit(StreamRequest(rid=r, events=ev[:, r].numpy()))
+    t0 = time.monotonic()
+    ticks = 0
+    while worker.step():
+        ticks += 1
+        if args.metrics_out and args.metrics_every \
+                and ticks % args.metrics_every == 0:
+            obs.default_registry().write(args.metrics_out)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.monotonic() - t0
+    done = worker.done
+    lat = [r.done_at - r.submitted_at for r in done]
+    ttfr = [r.first_reply_at - r.submitted_at for r in done]
+    log.info("streamed %d %s streams (%dx%d, %d timesteps, chunk_T=%d, "
+             "capacity %d) in %.3fs (%.2f streams/s, %d ticks, %d rewinds); "
+             "first-reply p50 %.3fs; latency p50 %.3fs; backend=%s "
+             "t_block=%d device=%s", len(done), args.snn, spec.input_hw[0],
+             spec.input_hw[1], spec.timesteps, args.chunk_T, args.capacity,
+             dt, len(done) / dt, ticks, worker.restarts,
+             float(np.median(ttfr)), float(np.median(lat)),
+             compiled.engine.cfg.backend, args.t_block, dev)
+    log.info("chip estimate/stream (cumulative): %.0f cycles p50, %.1f uJ p50",
+             float(np.median([r.cycles for r in done])),
+             float(np.median([r.energy_uj for r in done])))
+    _export_telemetry(compiled, args.metrics_out, args.trace_out,
+                      [(r.rid, r.input_counts) for r in done]
+                      if want_timeline else [])
+    worker.shutdown()
+    return worker
+
+
+def _export_telemetry(compiled, metrics_out, trace_out, stream_counts) -> None:
+    """Final metrics dump + Chrome-trace export for the serving run.
+
+    ``stream_counts``: (label, per-timestep input counts) pairs, each
+    re-priced through the multi-core pipeline model and merged into the
+    trace as its own process row (pid 100+i), beside the host spans.
+    """
+    if metrics_out:
+        obs.default_registry().write(metrics_out)
+        log.info("metrics written to %s", metrics_out)
+    if not trace_out:
+        return
+    extra = []
+    for i, (label, counts) in enumerate(stream_counts):
+        if counts is None:
+            continue
+        extra.extend(compiled.pipeline_trace(
+            input_counts=counts, label=f"stream {label}", pid=100 + i))
+    obs.default_tracer().export(trace_out, extra_events=extra)
+    log.info("chrome trace written to %s (%d pipeline-timeline events)",
+             trace_out, len(extra))
+
+
 def main(argv=None) -> None:
-    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
-                        format="%(asctime)s %(name)s %(message)s")
     args = parse_args(argv)
+    obs.logging_setup(json_mode=args.log_json, stream=sys.stderr)
     if args.arch is not None:
         serve_lm(args)
     else:

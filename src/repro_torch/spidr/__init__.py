@@ -11,8 +11,15 @@
     cost = plan.cost(plan.run(events))               # per-core MulticoreCost
     compiled = spidr.compile(exported, spec, target) # snn.export integers
     compiled.save(path); compiled = spidr.load(path)
+
+    with compiled.open_stream(capacity=4, chunk_T=2) as session:
+        slot = session.open()
+        update = session.step({slot: events[0:2, 0]})[slot]  # SlotUpdate
+        compiled.snapshot(path)                   # weights + live sessions
+    resumed = spidr.restore(path)                 # in a fresh process too
 """
-from .compiled import CompiledSNN, VerifyReport, compile, load
+from .compiled import (CompiledSNN, SlotUpdate, StreamSession, VerifyReport,
+                       compile, load, read_snapshot_meta, restore)
 from .target import BACKENDS, PRECISION_PAIRS, DeployTarget
 
 __all__ = [
@@ -20,7 +27,11 @@ __all__ = [
     "CompiledSNN",
     "DeployTarget",
     "PRECISION_PAIRS",
+    "SlotUpdate",
+    "StreamSession",
     "VerifyReport",
     "compile",
     "load",
+    "read_snapshot_meta",
+    "restore",
 ]

@@ -15,22 +15,32 @@ Two input forms, one per quantization provenance, as the reference's:
 bit-exact with single-core execution.  A :class:`CompiledSNN` offers
 
   ``run(events)``            whole-tensor inference over ``(T, B, H, W, C)``
+  ``open_stream()``          a persistent-Vmem streaming session
+                             (:class:`StreamSession`)
   ``cost(result)``           the run priced on the calibrated chip models
                              (``MulticoreCost`` on a multi-core plan)
+  ``metrics()``              the process-wide telemetry registry's export
   ``pipeline_trace(result)`` the plan's per-core pipeline as a Chrome trace
   ``save(path)``             the exported integer artifact, which
                              ``spidr.load`` (this package's or the
                              reference's) rebuilds
+  ``snapshot(path)``         the integer weights plus every open session's
+                             slots, table and clocks, which
+                             ``spidr.restore`` resumes bit-exactly in a
+                             fresh process (this package's or the
+                             reference's: either reads the other's)
   ``verify(events)``         the engine against the python-loop reference
                              and a plan against the single-core engine
 
-Streams and snapshots (ROADMAP A7), the static-analysis report (A11),
-the roofline (A8), metrics (A9) and the QAT round trip of ``verify``
-(A10) belong to later slices of the port.
+The static-analysis report (ROADMAP A11), the roofline (A8) and the QAT
+round trip of ``verify`` (A10) belong to later slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -39,10 +49,12 @@ import torch
 from .. import resolve_device
 from ..checkpoint.checkpoint import Checkpointer
 from ..compiler import compile_network
-from ..core.network import SNNSpec, gesture_net, optical_flow_net
+from ..core.network import SNNSpec, gesture_net, init_state_shapes, optical_flow_net
+from ..core.pipeline import PipelineState
 from ..engine.cost import estimate_cost, estimate_multicore_cost
 from ..engine.inference import (
     EngineConfig,
+    EngineLayer,
     EngineOutput,
     SNNEngine,
     build_engine,
@@ -50,17 +62,32 @@ from ..engine.inference import (
     run_engine,
     run_reference,
 )
+from ..engine.streaming import (
+    SESSION_SCHEMA_VERSION,
+    SlotUpdate,
+    StreamSessionManager,
+)
+from ..obs import metrics as obs_metrics
 from ..obs import timeline as obs_timeline
+from ..obs import trace as obs_trace
 from ..snn.export import (
+    ExportedLayer,
     ExportedNetwork,
     deploy,
     load_exported,
     read_export_meta,
     save_exported,
 )
-from .target import DeployTarget
+from .target import DeployTarget, _require_positive_int
 
-__all__ = ["CompiledSNN", "VerifyReport", "compile", "load"]
+__all__ = ["CompiledSNN", "SlotUpdate", "StreamSession", "VerifyReport",
+           "compile", "load", "read_snapshot_meta", "restore"]
+
+# Live-session snapshot artifact: one Checkpointer step whose metadata
+# carries this key (the reference's), distinct from the ``snn.export``
+# weight artifact of ``CompiledSNN.save``.
+_SNAPSHOT_META_KEY = "spidr_session_snapshot"
+SNAPSHOT_VERSION = 1
 
 
 def _engine_config(target: DeployTarget) -> EngineConfig:
@@ -97,6 +124,142 @@ class VerifyReport:
         return self.exact
 
 
+class StreamSession:
+    """Session handle over a bank of persistent-Vmem stream slots.
+
+    Wraps an ``engine.streaming.StreamSessionManager``: ``capacity`` slots
+    multiplexed into one fixed-shape ``run_chunk`` per tick, on the
+    deployment's device.  The delivery contract is the manager's (every
+    open slot delivers a chunk every tick; a short chunk ends its stream);
+    violations raise with the manager's diagnostics.
+
+    Lifecycle: the session is a context manager; :meth:`close` is
+    idempotent (closing a closed slot, or the whole session twice, is a
+    no-op), while :meth:`open`/:meth:`step` on a closed session raise
+    ``RuntimeError``.
+    """
+
+    def __init__(self, engine: SNNEngine, capacity: int, chunk_T: int,
+                 collect_chunk_counts: bool = False, metrics=None,
+                 tracer=None, device=None):
+        self._manager = StreamSessionManager(
+            engine, capacity=capacity, chunk_T=chunk_T, metrics=metrics,
+            tracer=tracer, collect_chunk_counts=collect_chunk_counts,
+            device=device)
+        self._closed = False
+
+    @property
+    def capacity(self) -> int:
+        return self._manager.capacity
+
+    @property
+    def chunk_T(self) -> int:
+        return self._manager.chunk_T
+
+    @property
+    def occupancy(self) -> int:
+        return self._manager.occupancy
+
+    @property
+    def active(self) -> tuple:
+        """Per-slot open flags (index = slot id)."""
+        return tuple(self._manager.active)
+
+    def state_dict(self) -> dict:
+        """The session's full durable state as fresh host numpy arrays (see
+        ``StreamSessionManager.state_dict``)."""
+        return self._manager.state_dict()
+
+    def load_state_dict(self, d: dict) -> None:
+        """Restore the session to a :meth:`state_dict` snapshot bit-exactly
+        (the session must have matching capacity/engine geometry)."""
+        self._manager.load_state_dict(d)
+
+    @property
+    def closed(self) -> bool:
+        """True once the whole session was retired via no-arg :meth:`close`
+        (or by leaving its ``with`` block)."""
+        return self._closed
+
+    def _require_open(self, what: str) -> None:
+        if self._closed:
+            raise RuntimeError(
+                f"cannot {what} on a closed StreamSession — open a new "
+                "session with CompiledSNN.open_stream()")
+
+    def open(self) -> Optional[int]:
+        """Allocate a slot for a new stream; None if the session is full."""
+        self._require_open("open a stream")
+        return self._manager.open()
+
+    def step(self, chunks: dict) -> dict:
+        """Advance every open slot by one chunk: ``{slot: (t, H, W, C)}``
+        events in, ``{slot: SlotUpdate}`` incremental replies out."""
+        self._require_open("step")
+        return self._manager.step(chunks)
+
+    def close(self, slot: Optional[int] = None) -> None:
+        """Retire one stream slot, or with no argument the whole session.
+
+        Idempotent: closing a slot that is not open, or an already closed
+        session, is a no-op.  A no-arg close retires every open slot and
+        marks the session closed.
+        """
+        if slot is None:
+            for s, active in enumerate(self._manager.active):
+                if active:
+                    self._manager.close(s)
+            self._closed = True
+            return
+        if self._closed or not self._manager.active[slot]:
+            return
+        self._manager.close(slot)
+
+    def export_slot(self, slot: int) -> dict:
+        """One live stream's durable state as fresh host arrays — feed to
+        another session's :meth:`import_slot` to migrate it bit-exactly."""
+        self._require_open("export a slot")
+        return self._manager.export_slot(slot)
+
+    def import_slot(self, payload: dict, slot: Optional[int] = None) -> int:
+        """Install a migrated stream's :meth:`export_slot` payload into a
+        free slot (first free by default); returns the destination slot."""
+        self._require_open("import a slot")
+        return self._manager.import_slot(payload, slot)
+
+    def iter_chunks(self, events, slot: Optional[int] = None):
+        """Serve one whole ``(T, H, W, C)`` stream through this session,
+        ``chunk_T`` timesteps per tick, yielding each :class:`SlotUpdate`.
+
+        With no ``slot`` the helper opens one (``RuntimeError`` when the
+        session is full) and closes it when the stream ends, also on an
+        early ``break`` or error.  Other live slots must keep delivering
+        through their own ``step`` calls.
+        """
+        self._require_open("iterate a stream")
+        events = np.asarray(events)
+        own = slot is None
+        if own:
+            slot = self._manager.open()
+            if slot is None:
+                raise RuntimeError(
+                    f"session is full ({self.capacity} slots live) — "
+                    "close a stream or open a larger session")
+        try:
+            for lo in range(0, events.shape[0], self.chunk_T):
+                yield self._manager.step(
+                    {slot: events[lo:lo + self.chunk_T]})[slot]
+        finally:
+            if own and not self._closed and self._manager.active[slot]:
+                self._manager.close(slot)
+
+    def __enter__(self) -> "StreamSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 class CompiledSNN:
     """A deployed SpiDR network: engine + schedule behind one lifecycle.
 
@@ -114,6 +277,7 @@ class CompiledSNN:
         self.exported = exported
         self.params = params
         self._base_engine = engine if base_engine is None else base_engine
+        self._sessions: list = []   # every StreamSession opened here
 
     @property
     def device(self) -> torch.device:
@@ -152,6 +316,47 @@ class CompiledSNN:
             return run_reference(self.engine, events)
         return run_engine(self.engine, events)
 
+    # -- streaming ---------------------------------------------------------
+    def open_stream(self, capacity: Optional[int] = None,
+                    chunk_T: Optional[int] = None,
+                    collect_chunk_counts: bool = False, metrics=None,
+                    tracer=None, device=None) -> StreamSession:
+        """Open a persistent-Vmem streaming session on the deployment's device.
+
+        ``capacity`` / ``chunk_T`` default to the target's
+        ``stream_capacity`` / ``chunk_T``.  A stream served through the
+        session is bit-identical to a whole-stream :meth:`run` on that
+        stream alone, whatever shares the batch.  (A ``"reference"`` target
+        streams through the plain torch datapath: same integers.)
+
+        ``collect_chunk_counts=True`` makes every ``SlotUpdate`` carry its
+        chunk's per-layer input-spike counts (for per-stream pipeline
+        timelines).  ``metrics`` / ``tracer``: None uses the process-wide
+        ``repro_torch.obs`` defaults (off unless enabled), a private
+        registry/tracer isolates, False pins telemetry off.  ``device``:
+        None or the deployment's device (another device is ROADMAP A9).
+        """
+        capacity = self.target.stream_capacity if capacity is None \
+            else capacity
+        chunk_T = self.target.chunk_T if chunk_T is None else chunk_T
+        _require_positive_int("capacity", capacity,
+                              hint="concurrent persistent-Vmem stream slots")
+        _require_positive_int("chunk_T", chunk_T,
+                              hint="timesteps delivered per streaming tick")
+        session = StreamSession(self.engine, capacity=capacity,
+                                chunk_T=chunk_T, metrics=metrics,
+                                tracer=tracer,
+                                collect_chunk_counts=collect_chunk_counts,
+                                device=device)
+        self._sessions.append(session)
+        return session
+
+    @property
+    def sessions(self) -> tuple:
+        """Every :class:`StreamSession` opened on this deployment, in
+        :meth:`open_stream` order — the set :meth:`snapshot` serializes."""
+        return tuple(self._sessions)
+
     def cost(self, result=None, input_counts=None):
         """Price a run on the calibrated chip models.
 
@@ -179,6 +384,18 @@ class CompiledSNN:
         if isinstance(input_counts, torch.Tensor):
             input_counts = input_counts.cpu().numpy()
         return np.asarray(input_counts)
+
+    def metrics(self, fmt: str = "prometheus"):
+        """Export the process-wide metrics registry (``repro_torch.obs``):
+        ``"prometheus"`` text or the ``"json"`` dict.  Empty unless metrics
+        were enabled before the instrumented paths ran."""
+        reg = obs_metrics.default_registry()
+        if fmt in ("prometheus", "prom", "text"):
+            return reg.to_prometheus()
+        if fmt == "json":
+            return reg.to_dict()
+        raise ValueError(
+            f"unknown metrics format {fmt!r} — use 'prometheus' or 'json'")
 
     def pipeline_trace(self, result=None, input_counts=None, path=None,
                        label: str = "run", pid: int = 1) -> list:
@@ -218,6 +435,70 @@ class CompiledSNN:
                 "export_network, then compile(exported, spec, target)) to "
                 "make save()/load() available")
         save_exported(Checkpointer(str(path)), step, self.exported, spec=self.spec)
+
+    def _layer_arrays(self) -> list:
+        """The deployment's integer weights as plain numpy, one
+        ``{"w_q", "w_scale", "thr_int"}`` per weight layer (None per pool).
+
+        ``w_scale`` is widened to float64, so both provenances serialize
+        losslessly (a per-tensor python float, a per-channel float32).
+        """
+        out = []
+        for el in self._base_engine.layers:
+            if el.kind not in ("conv", "fc"):
+                out.append(None)
+                continue
+            thr = el.thr_int
+            out.append({
+                "w_q": el.w_q.cpu().numpy().astype(np.int8, copy=True),
+                "w_scale": np.asarray(el.w_scale, np.float64),
+                "thr_int": (thr.cpu().numpy().astype(np.int32, copy=True)
+                            if isinstance(thr, torch.Tensor)
+                            else np.asarray(thr, np.int32)),
+            })
+        return out
+
+    def snapshot(self, path, step: int = 0, sessions=None,
+                 extra: Optional[dict] = None) -> None:
+        """Persist the complete live serving state under ``path``.
+
+        One atomic, checksummed checkpoint step holding the deployment's
+        integer weights plus every given session's durable state (slot
+        Vmems, session table, handshake clocks), in the reference's layout:
+        ``spidr.restore`` of either package resumes every stream
+        bit-exactly.  The target is written in the reference's vocabulary
+        (plain backend ``"jnp"``, ``interpret`` None).  ``sessions``
+        defaults to every session opened via :meth:`open_stream`;
+        ``extra`` is JSON-serializable caller bookkeeping, returned by
+        :func:`read_snapshot_meta`.
+        """
+        sessions = self.sessions if sessions is None else tuple(sessions)
+        t0 = time.perf_counter()
+        with obs_trace.default_tracer().span(
+                "snapshot.save", cat="durability", path=str(path),
+                sessions=len(sessions)):
+            info = {
+                "version": SNAPSHOT_VERSION,
+                "session_schema": SESSION_SCHEMA_VERSION,
+                "provenance": ("exported" if self.exported is not None
+                               else "per_tensor"),
+                "target": _target_info(self.target),
+                "spec": _spec_info(self.spec),
+                "sessions": [{"capacity": s.capacity, "chunk_T": s.chunk_T}
+                             for s in sessions],
+                "extra": extra or {},
+            }
+            tree = {"layers": self._layer_arrays(),
+                    "sessions": [s.state_dict() for s in sessions]}
+            Checkpointer(str(path)).save(
+                step, tree, extra_meta={_SNAPSHOT_META_KEY: info})
+        reg = obs_metrics.default_registry()
+        if reg:
+            reg.histogram(
+                "spidr_snapshot_seconds",
+                "CompiledSNN.snapshot wall duration",
+                edges=obs_metrics.LATENCY_BUCKETS_S,
+            ).observe(time.perf_counter() - t0)
 
     def verify(self, events=None, params=None, batch: int = 2,
                seed: int = 0) -> VerifyReport:
@@ -374,3 +655,262 @@ def load(path, spec: Optional[SNNSpec] = None,
     if target is None:
         target = DeployTarget(weight_bits=exported.weight_bits)
     return compile(exported, spec, target, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Live-session snapshots: CompiledSNN.snapshot -> spidr.restore
+# ---------------------------------------------------------------------------
+# The two packages name the plain integer backend differently.
+_BACKEND_TO_REFERENCE = {"torch": "jnp"}
+_BACKEND_FROM_REFERENCE = {"jnp": "torch"}
+
+
+def _target_info(target: DeployTarget) -> dict:
+    """The target's JSON form in the reference's vocabulary: its field
+    order, ``interpret`` (None: the reference picks) and ``"jnp"`` for the
+    plain backend, so ``repro.spidr.restore`` reads a port snapshot."""
+    info = {}
+    for key, value in dataclasses.asdict(target).items():
+        if key == "backend":
+            value = _BACKEND_TO_REFERENCE.get(value, value)
+        elif key == "block":
+            value = list(value)
+        info[key] = value
+        if key == "stream_capacity":
+            info["interpret"] = None
+    return info
+
+
+def _spec_info(spec: SNNSpec) -> dict:
+    """The spec geometry a snapshot pins (and restore re-validates)."""
+    return {"name": spec.name, "input_hw": list(spec.input_hw),
+            "in_channels": int(spec.in_channels),
+            "timesteps": int(spec.timesteps), "readout": spec.readout,
+            "n_layers": len(spec.layers)}
+
+
+def _target_from_info(d: dict) -> DeployTarget:
+    """Rebuild a snapshot's :class:`DeployTarget` from its JSON form,
+    written by either package (the reference's ``interpret`` field, which
+    only steers Pallas, is dropped; ``"jnp"`` is the plain backend)."""
+    kw = {k: v for k, v in d.items() if k != "interpret"}
+    kw["backend"] = _BACKEND_FROM_REFERENCE.get(kw.get("backend"),
+                                                kw.get("backend"))
+    kw["block"] = tuple(kw["block"])
+    try:
+        return DeployTarget(**kw)
+    except TypeError as e:
+        raise ValueError(
+            f"the snapshot's DeployTarget does not match this build's "
+            f"fields: {e} — re-snapshot with this version") from e
+
+
+def _layer_arrays_template(spec: SNNSpec, per_channel: bool) -> list:
+    """Structure template of the snapshot's weight tree, from the spec
+    alone; ``per_channel`` (exported networks) carries (K,) scale and
+    threshold vectors, a per-tensor deployment scalars."""
+    like = []
+    for layer in spec.layers:
+        if layer.kind == "conv":
+            f, k = layer.conv.kh * layer.conv.kw * layer.c_in, layer.c_out
+        elif layer.kind == "fc":
+            f, k = layer.c_in, layer.c_out
+        else:
+            like.append(None)
+            continue
+        sshape = (k,) if per_channel else ()
+        like.append({"w_q": np.zeros((f, k), np.int8),
+                     "w_scale": np.zeros(sshape, np.float64),
+                     "thr_int": np.zeros(sshape, np.int32)})
+    return like
+
+
+def _session_state_template(spec: SNNSpec, capacity: int,
+                            n_cores: int) -> dict:
+    """Structure template matching ``StreamSessionManager.state_dict``,
+    built without an engine (the weights are in the same checkpoint)."""
+    vmem = [None if shape is None else np.zeros(shape, np.int32)
+            for shape in init_state_shapes(spec, capacity)]
+    if spec.readout == "rate":
+        acc = np.zeros((capacity, spec.layers[-1].c_out), np.int32)
+    else:
+        acc = np.zeros(next(v for v in reversed(vmem)
+                            if v is not None).shape, np.int32)
+    n_l = sum(1 for layer in spec.layers if layer.kind in ("conv", "fc"))
+    return {
+        "schema": np.int64(SESSION_SCHEMA_VERSION),
+        "engine_state": {
+            "vmem": vmem,
+            "readout_acc": acc,
+            "out_counts": np.zeros((n_l, capacity), np.int32),
+            "in_counts": np.zeros((n_l, capacity), np.int32),
+        },
+        "table": {
+            "active": np.zeros(capacity, np.bool_),
+            "ended": np.zeros(capacity, np.bool_),
+            "timesteps": np.zeros(capacity, np.int64),
+            "spikes": np.zeros(capacity, np.int64),
+            "cycles": np.zeros(capacity, np.int64),
+            "energy_uj": np.zeros(capacity, np.float64),
+            "route_cycles": np.zeros((capacity, n_cores), np.int64),
+            "core_cycles": np.zeros((capacity, n_cores), np.int64),
+            "imbalance": np.ones(capacity, np.float64),
+            "ticks": np.int64(0),
+        },
+        "clocks": [[PipelineState.zero().to_dict()
+                    for _ in range(n_cores)] for _ in range(capacity)],
+    }
+
+
+def _compile_from_arrays(spec: SNNSpec, target: DeployTarget,
+                         cfg: EngineConfig, arrays: list,
+                         per_channel: bool, name: str,
+                         device: torch.device) -> CompiledSNN:
+    """Rebuild a deployment from a snapshot's integers (``w_q``, float64
+    ``w_scale``, ``thr_int``), through the build chain the original took
+    (``deploy`` for exported networks, ``build_engine``'s layers for
+    per-tensor ones) and never by quantizing again: the restored engine is
+    byte-identical to the one snapshotted."""
+    if per_channel:
+        ex_layers = tuple(
+            None if d is None else ExportedLayer(
+                w_q=np.asarray(d["w_q"], np.int8),
+                scale=np.asarray(d["w_scale"], np.float32),
+                thr_int=np.asarray(d["thr_int"], np.int32))
+            for d in arrays)
+        exported = ExportedNetwork(name=name, weight_bits=target.weight_bits,
+                                   layers=ex_layers)
+        base = deploy(exported, spec, cfg, n_cores=1, device=device)
+    else:
+        exported = None
+        layers = []
+        for layer, d in zip(spec.layers, arrays):
+            if layer.kind in ("conv", "fc"):
+                geometry = {}
+                if layer.kind == "conv":
+                    c = layer.conv
+                    geometry = dict(kh=c.kh, kw=c.kw, stride=c.stride,
+                                    padding=c.padding)
+                neuron = (layer.conv.neuron if layer.kind == "conv"
+                          else layer.fc.neuron)
+                layers.append(EngineLayer(
+                    kind=layer.kind, neuron=neuron,
+                    w_q=torch.tensor(np.asarray(d["w_q"], np.int8),
+                                     device=device),
+                    w_scale=float(d["w_scale"]),
+                    thr_int=int(d["thr_int"]), **geometry))
+            elif layer.kind == "pool":
+                layers.append(EngineLayer(kind="pool"))
+            else:
+                layers.append(EngineLayer(kind="adaptive_pool",
+                                          target_hw=layer.target_hw))
+        base = SNNEngine(spec=spec, cfg=cfg, layers=tuple(layers),
+                         device=device)
+    engine = _apply_schedule(base, spec, target, cfg)
+    return CompiledSNN(spec=spec, target=target, engine=engine,
+                       base_engine=base, exported=exported)
+
+
+def read_snapshot_meta(path, step: Optional[int] = None) -> dict:
+    """A :meth:`CompiledSNN.snapshot` artifact's metadata, nothing loaded:
+    format version, target, spec geometry, session geometries, the
+    caller's ``extra`` and the resolved ``step``.  ``FileNotFoundError``
+    when no step exists, ``ValueError`` when the checkpoint is not a
+    session snapshot."""
+    ckpt = Checkpointer(str(path))
+    if step is None:
+        step = ckpt.latest_step()
+        if step is None:
+            raise FileNotFoundError(
+                f"no snapshot steps under {ckpt.directory} — was "
+                "CompiledSNN.snapshot called?")
+    with open(os.path.join(ckpt.directory,
+                           f"step_{step:09d}", "meta.json")) as f:
+        meta = json.load(f)
+    info = meta.get(_SNAPSHOT_META_KEY)
+    if info is None:
+        raise ValueError(
+            f"checkpoint step {step} under {ckpt.directory} is not a spidr "
+            f"session snapshot (no {_SNAPSHOT_META_KEY!r} metadata) — "
+            "weight artifacts from CompiledSNN.save load via spidr.load; "
+            "snapshots come from CompiledSNN.snapshot")
+    return dict(info, step=int(step))
+
+
+def restore(path, spec: Optional[SNNSpec] = None,
+            compiled: Optional[CompiledSNN] = None,
+            step: Optional[int] = None, device=None) -> CompiledSNN:
+    """Resume a serving deployment from a :meth:`CompiledSNN.snapshot`
+    (written by this package or the reference).
+
+    Validates the checkpoint (crc32 per leaf, format and schema versions),
+    rebuilds the deployment from its integer weights onto the snapshot's
+    :class:`DeployTarget`, reopens every serialized session and reloads
+    its slots, table and clocks: every resumed stream then emits spikes,
+    readouts and cumulative cycle/energy attribution byte-identical to the
+    uninterrupted run.  ``device=None`` means the card (``"cpu"`` for the
+    plain PyTorch kernels).
+
+    ``spec`` is only needed for networks that are not one of the paper's.
+    Pass ``compiled`` to resume onto a prepared replica (on its device):
+    it must have the identical target and byte-identical weights, or
+    ``ValueError``.
+    """
+    with obs_trace.default_tracer().span("snapshot.restore",
+                                         cat="durability", path=str(path)):
+        return _restore(path, spec, compiled, step, device)
+
+
+def _restore(path, spec: Optional[SNNSpec], compiled: Optional[CompiledSNN],
+             step: Optional[int], device) -> CompiledSNN:
+    info = read_snapshot_meta(path, step)
+    step = info["step"]
+    target = _target_from_info(info["target"])
+    per_channel = info["provenance"] == "exported"
+    sinfo = dict(info["spec"])
+    if compiled is not None:
+        spec = compiled.spec
+    if spec is None:
+        try:
+            spec = _spec_for(sinfo["name"])
+        except ValueError:
+            raise ValueError(
+                f"snapshot names network {sinfo['name']!r}, which is not "
+                "one of the paper's specs — pass the SNNSpec it was "
+                "compiled with: restore(path, spec=...)") from None
+        spec = dataclasses.replace(spec, input_hw=tuple(sinfo["input_hw"]),
+                                   timesteps=int(sinfo["timesteps"]))
+    if _spec_info(spec) != sinfo:
+        raise ValueError(
+            f"spec geometry {_spec_info(spec)} does not match the "
+            f"snapshot's {sinfo} — restore onto the network the snapshot "
+            "was taken on")
+    like = {"layers": _layer_arrays_template(spec, per_channel),
+            "sessions": [_session_state_template(spec, s["capacity"],
+                                                 target.n_cores)
+                         for s in info["sessions"]]}
+    tree = Checkpointer(str(path)).restore(step, like)
+    if compiled is not None:
+        if compiled.target != target:
+            raise ValueError(
+                f"snapshot was taken on {target}, but the prepared replica "
+                f"is compiled for {compiled.target} — migration is only "
+                "bit-exact onto the identical DeployTarget")
+        for i, (a, b) in enumerate(zip(compiled._layer_arrays(),
+                                       tree["layers"])):
+            same = (a is None) == (b is None) and (
+                a is None or all(np.array_equal(a[k], b[k])
+                                 for k in ("w_q", "w_scale", "thr_int")))
+            if not same:
+                raise ValueError(
+                    f"weight layer {i} of the prepared replica is not "
+                    "byte-identical to the snapshot's — a session snapshot "
+                    "only resumes on the deployment it was taken from")
+    else:
+        compiled = _compile_from_arrays(
+            spec, target, _engine_config(target), tree["layers"],
+            per_channel, sinfo["name"], resolve_device(device))
+    for geo, sess_state in zip(info["sessions"], tree["sessions"]):
+        session = compiled.open_stream(geo["capacity"], geo["chunk_T"])
+        session.load_state_dict(sess_state)
+    return compiled

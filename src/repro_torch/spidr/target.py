@@ -69,8 +69,9 @@ class DeployTarget:
         ported yet (ROADMAP A8) and must stay False.
 
     Streaming
-        ``stream_capacity`` and ``chunk_T`` are kept for the streaming
-        sessions of a later slice (ROADMAP A7).
+        ``stream_capacity`` slots of persistent Vmem and ``chunk_T``
+        timesteps per delivered chunk configure sessions opened with
+        :meth:`~repro_torch.spidr.CompiledSNN.open_stream`.
     """
 
     weight_bits: int = 4

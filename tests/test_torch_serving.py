@@ -1,7 +1,9 @@
 """Port parity, facade and serving: repro_torch.spidr / serving / snn.data
 against the JAX package, plus the port's package rules (no JAX imports,
-no silent CPU fallback, unported flags rejected by name)."""
+no silent CPU fallback, unported flags rejected by name) and the serve
+CLI's streaming and telemetry flags."""
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -158,11 +160,7 @@ def test_deploy_target_validation():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--snn", "gesture", "--streaming"], "A7"),
-    (["--snn", "gesture", "--chunk-T", "2"], "A7"),
     (["--snn", "gesture", "--replicas", "2"], "A9"),
-    (["--snn", "gesture", "--trace-out", "x.json"], "A9"),
-    (["--snn", "gesture", "--metrics-out", "m.json"], "A9"),
     (["--arch", "qwen1.5-0.5b"], "A12"),
     ([], "A12"),
 ])
@@ -171,6 +169,61 @@ def test_cli_rejects_unported_flags_by_name(capsys, argv, item):
         serve.parse_args(argv)
     assert e.value.code != 0
     assert item in capsys.readouterr().err
+
+
+@pytest.fixture
+def fresh_obs():
+    """The CLI's telemetry flags enable the process-wide registry and
+    tracer; each test gets fresh disabled ones and leaves them so."""
+    from repro_torch import obs
+
+    obs.set_default_registry(obs.MetricsRegistry(enabled=False))
+    obs.set_default_tracer(obs.Tracer(enabled=False))
+    yield obs
+    obs.set_default_registry(obs.MetricsRegistry(enabled=False))
+    obs.set_default_tracer(obs.Tracer(enabled=False))
+
+
+_CLI = ["--snn", "gesture", "--device", "cpu", "--requests", "3", "--capacity", "2"]
+
+
+@pytest.mark.parametrize("flag", ["--streaming", "--chunk-T", "--trace-out",
+                                  "--metrics-out"])
+def test_cli_streaming_and_telemetry_flags_serve_on_cpu(fresh_obs, tmp_path, flag):
+    """Each flag the port used to reject now serves and has its effect:
+    streams served through a StreamWorker (equal to the whole-stream
+    batches), chunks of ``--chunk-T`` timesteps, a Chrome trace with the
+    serving spans and, on a 4-core plan, each stream's pipeline timeline,
+    a metrics dump."""
+    extra = {"--streaming": ["--streaming"],
+             "--chunk-T": ["--streaming", "--chunk-T", "5"],
+             "--trace-out": ["--streaming", "--n-cores", "4",
+                             "--trace-out", str(tmp_path / "t.json")],
+             "--metrics-out": ["--metrics-out", str(tmp_path / "m.json")]}[flag]
+    worker = serve.serve_snn(serve.parse_args(_CLI + extra))
+    assert len(worker.done) == 3
+    assert all(r.readout.shape == (11,) for r in worker.done)
+    if flag == "--metrics-out":
+        dump = json.loads((tmp_path / "m.json").read_text())
+        assert dump["spidr_serve_batches_total"][0]["value"] == worker.batches == 2
+        return
+    batch = serve.serve_snn(serve.parse_args(_CLI))
+    for a, b in zip(sorted(worker.done, key=lambda r: r.rid), batch.done):
+        assert_same(a.readout, b.readout)
+        assert a.cycles > 0 and a.energy_uj > 0 and a.cursor == 20
+    assert worker.closed and worker.restarts == 0
+    if flag == "--chunk-T":
+        assert worker.chunk_T == 5 and worker.ticks == 8   # 2 streams, then 1
+    elif flag == "--streaming":
+        assert worker.chunk_T == 2 and worker.ticks == 20
+    else:
+        events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+        names = [e["name"] for e in events if e.get("ph") == "X"]
+        # One serve.tick per step(), the last one finding no work left.
+        assert names.count("serve.tick") == worker.ticks + 1
+        assert names.count("run_chunk") == worker.ticks
+        # Beside this process's spans, one process row per stream's timeline.
+        assert {e["pid"] for e in events} - {os.getpid()} == {100, 101, 102}
 
 
 def test_cli_serves_on_cpu():
@@ -192,7 +245,7 @@ def _imports(path: pathlib.Path):
 
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "upgrade_drill_torch.py"]
     assert len(files) > 10
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -201,7 +254,10 @@ def test_port_imports_neither_jax_nor_repro():
     # fresh interpreter loads neither package.
     code = ("import sys; import repro_torch.compiler, repro_torch.checkpoint, "
             "repro_torch.obs, repro_torch.snn.export, repro_torch.spidr, "
-            "repro_torch.launch.optical_flow; "
+            "repro_torch.launch.optical_flow, repro_torch.launch.serve, "
+            "repro_torch.engine.streaming, repro_torch.serving, "
+            "repro_torch.runtime; "
+            f"sys.path.insert(0, {str(ROOT / 'tools')!r}); import upgrade_drill_torch; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
