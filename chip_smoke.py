@@ -229,13 +229,25 @@ def main() -> int:
     flow_walk = phase_optical_flow(torch, dev)
     launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
     check_optical_flow(torch, dev, flow_walk)
+    del flow_walk
+    kernels.reset_launches()
+    fleet_runs = phase_fleet(torch, dev, kernels)
+    launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
+    check_fleet(torch, dev, fleet_runs)
+    del fleet_runs
+    kernels.reset_launches()
+    tuned_runs = phase_autotune(torch, dev, kernels)
+    launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
+    check_autotune(torch, dev, tuned_runs)
+    del tuned_runs
     results.update(phase_lm_kernels(torch, dev))
     lm = lm_model(torch, dev)
     kernels.reset_launches()
     phase_lm(torch, dev, kernels, lm)
     launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
     emit({"phase": "launches",
-          "paths": "gesture + flow + streaming + quickstart + optical_flow walk + lm",
+          "paths": "gesture + flow + streaming + quickstart + optical_flow walk + "
+                   "fleet + autotune + lm",
           "launches": launches})
     check_lm(torch, dev, lm)
     for name in KERNEL_INFO:
@@ -1428,6 +1440,435 @@ def check_quickstart(torch, dev, out, results) -> None:
         dvs.append(row)
         emit({"phase": "dvs_tile_skip", **row})
     results["spike_gemm"]["dvs"] = dvs
+
+
+# ---------------------------------------------------------------------------
+# 6b. the serving fleet at full width: spidr.serve over two replicas
+# ---------------------------------------------------------------------------
+FLEET_STREAMS = {"gesture": 12, "optical-flow": 5}
+# Launches of B1 (t_block 1) or B2 per replica tick: weight layers x
+# (timesteps or slabs) per chunk.
+GESTURE_FLEET = {"n_replicas": 2, "capacity": 4, "chunk_T": 2}
+FLOW_FLEET = {"n_replicas": 2, "capacity": 2, "chunk_T": 5}
+
+
+def _fleet_inputs(torch, net):
+    """The net's spec, random params (seed 0) and ``(T, N, H, W, 2)`` events
+    of ``FLEET_STREAMS[net]`` streams (seed ``STREAM_SEED``)."""
+    from repro_torch.configs import spidr_gesture, spidr_optflow
+    from repro_torch.core.network import init_params
+    from repro_torch.snn.data import make_flow_batch, make_gesture_batch
+
+    spec = (spidr_gesture if net == "gesture" else spidr_optflow).CONFIG
+    make = make_gesture_batch if net == "gesture" else make_flow_batch
+    events, _ = make(torch.Generator().manual_seed(STREAM_SEED),
+                     batch=FLEET_STREAMS[net], timesteps=spec.timesteps,
+                     hw=spec.input_hw, device="cpu")
+    return spec, init_params(torch.Generator().manual_seed(0), spec), events.numpy()
+
+
+def _fleet_compile(dev, spec, params, backend, t_block, chunk_T, capacity):
+    from repro_torch import spidr
+
+    return spidr.compile(spec, params, spidr.DeployTarget(
+        weight_bits=4, backend=backend, t_block=t_block, chunk_T=chunk_T,
+        stream_capacity=capacity), device=dev)
+
+
+def _drive_fleet(compiled, events, cfg: dict, hooks=None) -> dict:
+    """Submit every stream in rid order to ``spidr.serve(compiled, **cfg)``
+    and step the sync fleet to the end; ``hooks[tick](fleet)`` runs after
+    fleet tick ``tick``.  Returns the shut-down fleet, its handles and the
+    host ms of each fleet tick (each ends in the ticks' copies to the
+    host, which wait for the card)."""
+    from repro_torch import spidr
+
+    fleet = spidr.serve(compiled, **cfg)
+    handles = {rid: fleet.submit(events[:, rid], rid=rid)
+               for rid in range(events.shape[1])}
+    tick_ms = []
+    t0 = time.perf_counter()
+    while True:
+        t1 = time.perf_counter()
+        alive = fleet.step()
+        tick_ms.append(1e3 * (time.perf_counter() - t1))
+        if not alive:
+            break
+        hook = (hooks or {}).get(fleet.ticks)
+        if hook is not None:
+            hook(fleet)
+    seconds = time.perf_counter() - t0
+    fleet.shutdown()
+    return {"fleet": fleet, "handles": handles, "tick_ms": tick_ms[:-1],
+            "seconds": seconds}
+
+
+def _migrate_once(fleet):
+    """The default migration: the lowest slot of the most-loaded replica to
+    the least-loaded one with a free slot."""
+    fleet.migrate()
+
+
+def _gesture_fleet_runs(compiled):
+    """(name, ServeConfig overrides, hooks) of the gesture sync runs: 12
+    streams over 2 x 4 slots.  The first wave of 8 ends at fleet tick 10,
+    tick 11 places the last 4 (2 + 2); ``migrate`` runs after tick 12,
+    which leaves 1 + 3, and ``migrate_every=3`` moves one back at tick 15;
+    ``kill`` kills replica 1 after tick 3, whose 4 streams replay on
+    replica 0."""
+    return (("migrate", {}, {12: _migrate_once}),
+            ("migrate_every", {"migrate_every": 3}, {12: _migrate_once}),
+            ("kill", {}, {3: lambda fleet: fleet.kill_replica(1)}))
+
+
+def phase_fleet(torch, dev, kernels) -> dict:
+    """Drive the fleet's runs (the checks come after the launch counts are
+    read): gesture sync (an explicit migration, ``migrate_every=3``, a
+    killed replica), gesture threaded (each replica on its own CUDA
+    stream), optical flow sync (one migration), a batch fleet, and the
+    CLI's ``--replicas 2``.  Each run records its B1/B2 launches."""
+    from repro_torch.launch import serve as launch_serve
+
+    out = {"runs": []}
+
+    def counted(fn):
+        before = dict(kernels.LAUNCHES)
+        res = fn()
+        res["launches"] = {k: kernels.LAUNCHES[k] - before[k] for k in INT_KERNELS}
+        return res
+
+    spec, params, events = _fleet_inputs(torch, "gesture")
+    gesture = _fleet_compile(dev, spec, params, "fused", 1, 2, 4)
+    out["gesture"] = {"spec": spec, "params": params, "events": events,
+                      "compiled": gesture}
+    torch.cuda.synchronize(dev)
+    for name, extra, hooks in _gesture_fleet_runs(gesture):
+        run = counted(lambda: _drive_fleet(gesture, events, dict(GESTURE_FLEET, **extra),
+                                           hooks))
+        run.update(net="gesture", name=name, mode="sync", t_block=1, chunk_T=2)
+        out["runs"].append(run)
+
+    def threaded():
+        from repro_torch import spidr
+
+        fleet = spidr.serve(gesture, mode="threaded", **GESTURE_FLEET)
+        t0 = time.perf_counter()
+        handles = {rid: fleet.submit(events[:, rid], rid=rid)
+                   for rid in range(events.shape[1])}
+        fleet.drain(timeout=600)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        fleet.shutdown()
+        return {"fleet": fleet, "handles": handles, "seconds": seconds,
+                "tick_ms": []}
+
+    run = counted(threaded)
+    run.update(net="gesture", name="threaded", mode="threaded", t_block=1, chunk_T=2)
+    out["runs"].append(run)
+
+    def batch():
+        from repro_torch import spidr
+
+        fleet = spidr.serve(gesture, n_replicas=2, capacity=4, batch=True)
+        t0 = time.perf_counter()
+        handles = {rid: fleet.submit(events[:, rid], rid=rid)
+                   for rid in range(events.shape[1])}
+        fleet.drain()
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        fleet.shutdown()
+        return {"fleet": fleet, "handles": handles, "seconds": seconds, "tick_ms": []}
+
+    run = counted(batch)
+    run.update(net="gesture", name="batch", mode="sync", t_block=1, chunk_T=None)
+    out["runs"].append(run)
+
+    fspec, fparams, fevents = _fleet_inputs(torch, "optical-flow")
+    flow = _fleet_compile(dev, fspec, fparams, "fused", 5, 5, 2)
+    out["optical-flow"] = {"spec": fspec, "params": fparams, "events": fevents,
+                           "compiled": flow}
+    # Streams 0-3 fill 2 x 2 slots for ticks 1-2; tick 3 places stream 4 on
+    # replica 0, and the migration moves it, mid-stream, to replica 1.
+    run = counted(lambda: _drive_fleet(flow, fevents, FLOW_FLEET, {3: _migrate_once}))
+    run.update(net="optical-flow", name="migrate", mode="sync", t_block=5, chunk_T=5)
+    out["runs"].append(run)
+
+    argv = ["--snn", "gesture", "--streaming", "--replicas", "2"]
+
+    def cli():
+        t0 = time.perf_counter()
+        fleet = launch_serve.serve_snn(launch_serve.parse_args(argv))
+        return {"fleet": fleet, "handles": None, "seconds": time.perf_counter() - t0,
+                "tick_ms": []}
+
+    run = counted(cli)
+    run.update(net="gesture", name="cli", mode="sync", t_block=1, chunk_T=2, argv=argv)
+    out["runs"].append(run)
+    return out
+
+
+def _hold_stream(h, want_readout, cost, what) -> float:
+    """One handle against its stream's whole-stream run + cost; returns the
+    energy's relative difference (the session sums it chunk by chunk)."""
+    check(h.done and h.readout.shape == want_readout.shape
+          and h.readout.tobytes() == want_readout.tobytes(),
+          f"{what}: stream {h.rid} readout differs from the whole-stream run")
+    check(h.cycles == cost.makespan_cycles,
+          f"{what}: stream {h.rid} cycles {h.cycles} != whole-stream "
+          f"{cost.makespan_cycles}")
+    rel = abs(h.energy_uj - cost.energy_uj) / cost.energy_uj
+    check(rel <= 1e-12, f"{what}: stream {h.rid} energy {h.energy_uj} vs "
+          f"whole-stream {cost.energy_uj}")
+    return rel
+
+
+def _handle_results(handles) -> dict:
+    return {rid: (h.readout.tobytes(), h.cycles, h.energy_uj, list(h.placements))
+            for rid, h in handles.items()}
+
+
+def check_fleet(torch, dev, fleet_runs) -> None:
+    """Every stream of every run bit-exact with its whole-stream ``run`` +
+    ``cost`` and with a ``backend="torch"`` fleet in the same scenario
+    (placements included: two sync fleets fed the same arrival order place
+    identically); B1/B2 launches equal to what the replicas' ticks
+    predict; the threaded replicas on two distinct non-default streams."""
+    from repro_torch.snn.data import make_gesture_batch
+
+    whole = {}
+    for net in ("gesture", "optical-flow"):
+        d = fleet_runs[net]
+        compiled, events = d["compiled"], d["events"]
+        whole[net] = []
+        for rid in range(events.shape[1]):
+            out = compiled.run(torch.from_numpy(events[:, rid:rid + 1]))
+            whole[net].append((out.readout[0].cpu().numpy(), compiled.cost(out)))
+    layers = {net: sum(1 for el in fleet_runs[net]["compiled"].engine.layers
+                       if el.kind in ("conv", "fc")) for net in whole}
+    torch_fleets = {}
+    for run in fleet_runs["runs"]:
+        net, name, fleet = run["net"], run["name"], run["fleet"]
+        what = f"fleet {net} {name}"
+        d = fleet_runs[net]
+        T = d["spec"].timesteps
+        workers = fleet.workers
+        if name == "batch":
+            expect = sum(w.batches for w in workers) * T * layers[net]
+            kernel = INT_KERNELS[0]
+        else:
+            per_tick = (run["chunk_T"] if run["t_block"] == 1
+                        else -(-run["chunk_T"] // run["t_block"]))
+            expect = sum(w.ticks for w in workers) * layers[net] * per_tick
+            kernel = INT_KERNELS[0] if run["t_block"] == 1 else INT_KERNELS[1]
+        want = {k: (expect if k == kernel else 0) for k in INT_KERNELS}
+        check(run["launches"] == want,
+              f"{what}: launches {run['launches']}, the replicas' ticks predict {want}")
+        rec = {"phase": "fleet", "net": net, "run": name, "mode": run["mode"],
+               "replicas": fleet.n_replicas, "t_block": run["t_block"],
+               "chunk_T": run["chunk_T"], "hw": list(d["spec"].input_hw), "T": T,
+               "streams": len(fleet.done), "fleet_ticks": fleet.ticks,
+               "replica_ticks": [getattr(w, "ticks", getattr(w, "batches", 0))
+                                 for w in workers],
+               "migrations": fleet.migrations, "crashes": fleet.crashes,
+               "launches": run["launches"], "serve_s": run["seconds"],
+               "streams_per_s": len(fleet.done) / run["seconds"]}
+        if run["tick_ms"]:
+            rec.update(host_ms_per_fleet_tick_median=statistics.median(run["tick_ms"]),
+                       host_ms_per_fleet_tick=run["tick_ms"])
+        if name == "cli":
+            ev, _ = make_gesture_batch(torch.Generator().manual_seed(1),
+                                       batch=len(fleet.done), timesteps=T,
+                                       hw=d["spec"].input_hw, device="cpu")
+            out = d["compiled"].run(ev)
+            got = {r.rid: r for r in fleet.done}
+            check(sorted(got) == list(range(ev.shape[1])) and fleet.n_replicas == 2
+                  and all(w.done for w in workers),
+                  f"{what}: {len(got)} streams over {fleet.n_replicas} replicas")
+            for rid, r in got.items():
+                check(r.readout.tobytes() == out.readout[rid].cpu().numpy().tobytes(),
+                      f"{what}: stream {rid} readout differs from the whole-stream run")
+            rec.update(argv=run["argv"], bit_exact_vs_whole_stream=True)
+            emit(rec)
+            continue
+        handles = run["handles"]
+        check(len(handles) == FLEET_STREAMS[net] and all(h.done for h in handles.values()),
+              f"{what}: {sum(h.done for h in handles.values())} of "
+              f"{FLEET_STREAMS[net]} streams done")
+        max_rel = 0.0
+        for rid, h in handles.items():
+            readout, cost = whole[net][rid]
+            if name == "batch":
+                check(h.readout.tobytes() == readout.tobytes(),
+                      f"{what}: stream {rid} readout differs from the whole-stream run")
+            else:
+                max_rel = max(max_rel, _hold_stream(h, readout, cost, what))
+        if name == "migrate" or name == "migrate_every":
+            check(fleet.migrations == (1 if name == "migrate" else 2),
+                  f"{what}: {fleet.migrations} migrations")
+        if name == "kill":
+            check(fleet.crashes == 1 and all(h.placements[-1][0] == 0
+                                              for h in handles.values()),
+                  f"{what}: streams after the crash not all on replica 0")
+        if name == "threaded":
+            s0, s1 = fleet.tick_streams[0], fleet.tick_streams[1]
+            default = torch.cuda.default_stream(dev).cuda_stream
+            check(s0 == {fleet.replica_streams[0].cuda_stream}
+                  and s1 == {fleet.replica_streams[1].cuda_stream}
+                  and default not in s0 | s1 and not s0 & s1,
+                  f"{what}: replica streams {s0}, {s1}, default {default}")
+            rec["replica_streams_distinct"] = True
+            rec["wall_ms_per_replica_tick"] = (1e3 * run["seconds"]
+                                               / max(w.ticks for w in workers))
+        if run["mode"] == "sync" and name != "batch":
+            # The same scenario on backend="torch": results and placements.
+            key = (net, name)
+            plain = _fleet_compile(dev, d["spec"], d["params"], "torch",
+                                   run["t_block"], run["chunk_T"],
+                                   d["compiled"].target.stream_capacity)
+            cfg = dict(GESTURE_FLEET if net == "gesture" else FLOW_FLEET)
+            hooks = {3: _migrate_once} if net == "optical-flow" else None
+            if net == "gesture":
+                for n, extra, hk in _gesture_fleet_runs(plain):
+                    if n == name:
+                        cfg.update(extra)
+                        hooks = hk
+            torch_fleets[key] = _drive_fleet(plain, d["events"], cfg, hooks)
+            check(_handle_results(torch_fleets[key]["handles"]) == _handle_results(handles),
+                  f"{what}: results or placements differ from the backend='torch' fleet")
+            rec["bit_exact_vs_torch_fleet"] = rec["placements_equal_torch_fleet"] = True
+            del plain
+        rec.update(energy_max_rel_diff_vs_whole_stream=max_rel,
+                   bit_exact_vs_whole_stream=True,
+                   placements={rid: h.placements for rid, h in handles.items()}
+                   if net == "optical-flow" or name == "migrate" else None)
+        emit(rec)
+
+
+# ---------------------------------------------------------------------------
+# 6c. the autotuner at full width, with the roofline bound
+# ---------------------------------------------------------------------------
+AUTOTUNE_BATCH = {"gesture": 4, "optical-flow": 2}
+
+
+def phase_autotune(torch, dev, kernels) -> dict:
+    """``spidr.compile(..., DeployTarget(autotune=True))`` on gesture and
+    flow at full width: the sweep (B2 at each weight layer's shape, CUDA
+    events), the cache written to a temporary ``SPIDR_AUTOTUNE_CACHE``,
+    cleared in memory and compiled again (no sweep launches), and the
+    autotuned deployment's run.  The comparisons come after the launch
+    counts are read."""
+    import tempfile
+
+    from repro_torch import spidr
+    from repro_torch.kernels import autotune
+    from repro_torch.snn.data import make_flow_batch, make_gesture_batch
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="spidr_autotune_")
+    prev = os.environ.get(autotune.CACHE_ENV)
+    os.environ[autotune.CACHE_ENV] = os.path.join(tmp, "cache.json")
+    try:
+        for net in ("gesture", "optical-flow"):
+            spec, params, _ = _fleet_inputs(torch, net)
+            make = make_gesture_batch if net == "gesture" else make_flow_batch
+            events, _ = make(torch.Generator().manual_seed(2), batch=AUTOTUNE_BATCH[net],
+                             timesteps=spec.timesteps, hw=spec.input_hw, device=dev)
+            autotune.clear_cache()
+            before = dict(kernels.LAUNCHES)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            tuned = spidr.compile(spec, params, spidr.DeployTarget(autotune=True),
+                                  device=dev)
+            torch.cuda.synchronize(dev)
+            sweep_s = time.perf_counter() - t0
+            sweep = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+            timings = autotune.sweep_timings()
+            autotune.clear_cache()
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            again = spidr.compile(spec, params, spidr.DeployTarget(autotune=True),
+                                  device=dev)
+            reload_s = time.perf_counter() - t0
+            reload = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+            result = tuned.run(events)
+            torch.cuda.synchronize(dev)
+            out[net] = {"spec": spec, "params": params, "events": events,
+                        "tuned": tuned, "again": again, "result": result,
+                        "sweep_launches": sweep, "sweep_s": sweep_s,
+                        "timings": timings, "reload_launches": reload,
+                        "reload_s": reload_s}
+    finally:
+        if prev is None:
+            os.environ.pop(autotune.CACHE_ENV, None)
+        else:
+            os.environ[autotune.CACHE_ENV] = prev
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def check_autotune(torch, dev, tuned_runs) -> None:
+    """The sweep made only B2 launches, the reloaded cache none and the same
+    configs; the autotuned run bit-exact with ``backend="torch"`` and with
+    the untuned deployment; its device ms per batch beside
+    ``CompiledSNN.roofline``'s bound."""
+    from repro_torch import spidr
+    from repro_torch.kernels import autotune
+
+    for net, d in tuned_runs.items():
+        what = f"autotune {net}"
+        tuned, spec, params, events = d["tuned"], d["spec"], d["params"], d["events"]
+        kcfgs = [el.kcfg for el in tuned.engine.layers if el.kind in ("conv", "fc")]
+        again = [el.kcfg for el in d["again"].engine.layers if el.kind in ("conv", "fc")]
+        check(all(k is not None for k in kcfgs) and kcfgs == again,
+              f"{what}: configs {kcfgs}, after the cache reload {again}")
+        check(d["sweep_launches"]["fused_lif_gemm_int_tblk"] > 0
+              and sum(d["sweep_launches"].values())
+              == d["sweep_launches"]["fused_lif_gemm_int_tblk"],
+              f"{what}: the sweep made {d['sweep_launches']}")
+        check(not any(d["reload_launches"].values()),
+              f"{what}: the reloaded cache launched {d['reload_launches']}")
+        # Each distinct layer shape raced once: warm-up + one timed run of
+        # each candidate's slabs.
+        T = min(spec.timesteps, 8)
+        shapes = spec.layer_shapes()
+        keys = {autotune.cache_key(sh.out_positions if sh.kind == "conv" else 1,
+                                   sh.fan_in, sh.out_channels, 4, 7) for sh in shapes}
+        slabs = sum(-(-T // tb) for tb in sorted({1, 2, min(4, T), T}))
+        check(d["sweep_launches"]["fused_lif_gemm_int_tblk"] == 2 * slabs * len(keys)
+              and set(d["timings"]) == keys,
+              f"{what}: {d['sweep_launches']} sweep launches for {len(keys)} shapes")
+        result = d["result"]
+        plain = spidr.compile(spec, params, spidr.DeployTarget(backend="torch"), device=dev)
+        untuned = spidr.compile(spec, params, spidr.DeployTarget(), device=dev)
+        for other, who in ((plain, "backend='torch'"), (untuned, "the untuned run")):
+            o = other.run(events)
+            for f in ("readout", "spike_counts", "input_counts"):
+                check(torch.equal(getattr(result, f), getattr(o, f)),
+                      f"{what}: {f} differ from {who}")
+        batch = events.shape[1]
+        tuned_ms = _time_ms(torch, lambda: tuned.run(events), 5)
+        untuned_ms = _time_ms(torch, lambda: untuned.run(events), 5)
+        roof = tuned.roofline(batch=batch)
+        layers = []
+        for sh, k, lb in zip(shapes, kcfgs, roof["layers"]):
+            key = autotune.cache_key(sh.out_positions if sh.kind == "conv" else 1,
+                                     sh.fan_in, sh.out_channels, 4, 7)
+            layers.append({"kind": sh.kind, "rows": lb.rows, "fan_in": sh.fan_in,
+                           "channels": sh.out_channels, "t_block": k[3],
+                           "candidates_ms": {str(tb): 1e3 * s for tb, s in
+                                             sorted(d["timings"][key].items())},
+                           "bound_us": lb.bound_s * 1e6, "bottleneck": lb.bottleneck})
+        emit({"phase": "autotune", "net": net, "hw": list(spec.input_hw),
+              "T": spec.timesteps, "batch": batch, "sweep_timesteps": T,
+              "layers": layers, "sweep_launches": d["sweep_launches"],
+              "sweep_s": d["sweep_s"], "reload_launches": d["reload_launches"],
+              "reload_s": d["reload_s"], "bit_exact_vs_torch": True,
+              "bit_exact_vs_untuned": True,
+              # CUDA events around eager runs: device time plus any host gap.
+              "event_ms_per_batch": tuned_ms, "untuned_event_ms_per_batch": untuned_ms,
+              "roofline_bound_us": roof["bound_us"],
+              "event_ms_over_bound": tuned_ms * 1e3 / roof["bound_us"]})
+        del plain, untuned
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ The layout mirrors ``repro`` so each module's counterpart is easy to find:
     core/      integer numerics (QuantSpec, neuron step), im2col/maxpool,
                the paper's two network specs
     kernels/   hand-written CUDA kernels for Hopper (``csrc/*.cu``), their
-               wrappers, and the plain PyTorch versions beside them
+               wrappers, the plain PyTorch versions beside them, and the
+               ``t_block`` autotuner (``autotune``)
     engine/    the fused timestep loop (``run_chunk`` / ``run_engine``),
                multi-core plans (``compile_engine``) and the chip cost models
     compiler/  partition / place / schedule a network onto SpiDR cores
@@ -17,8 +18,12 @@ The layout mirrors ``repro`` so each module's counterpart is easy to find:
     checkpoint/ atomic, checksummed checkpoints in the reference's format
     obs/       the multi-core pipeline timeline as a Chrome trace
     spidr/     the ``DeployTarget`` -> ``CompiledSNN`` facade (``save`` /
-               ``load``)
-    serving/   ``BatchWorker``; ``launch/serve.py`` is its CLI
+               ``load``, ``snapshot`` / ``restore``, ``serve``)
+    serving/   the fleet (``spidr.serve``, ``ServeConfig``, the session
+               scheduler) over ``StreamWorker`` / ``BatchWorker`` replicas;
+               ``launch/serve.py`` is its CLI
+    roofline/  ``PerfModel``: the analytic bound of a deployment at the
+               H100's peaks (``CompiledSNN.roofline``)
     models/    the LM stack's ``ssm`` family (RWKV6): prefill on the wkv
                kernel, decode by the recurrence; ``launch/serve.py --arch``
                serves it through ``Server``

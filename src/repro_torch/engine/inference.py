@@ -32,8 +32,13 @@ planes; the values are the same).  All accumulators and counters are
 int32, as in the reference.  ``build_engine`` quantizes with per-tensor
 scales (scalar thresholds); exported networks (``snn.export.deploy``)
 carry per-channel scales and ``(K,)`` integer thresholds, which the
-kernels take as a vector.  Autotuned per-layer kernel configs belong to a
-later slice of the port (ROADMAP A8).
+kernels take as a vector.  An autotuned layer (``EngineLayer.kcfg``, the
+reference's ``(block_m, block_n, block_k, t_blk)`` from
+``kernels.autotune`` via ``DeployTarget(autotune=True)``) walks its chunk
+in its own ``t_blk`` slabs; one such layer with ``t_blk > 1`` routes the
+engine's chunks layer-outer even at ``cfg.t_block == 1``, as the
+reference's selector does.  The block fields are accepted for parity: the
+CUDA tile is fixed.
 
 Multi-core plans.  ``compile_engine(engine, schedule)`` bakes a
 ``repro_torch.compiler`` :class:`CoreSchedule` into the engine as the
@@ -53,9 +58,16 @@ the others, the single-core layer update on ``w_q``/``thr_int`` computes
 exactly what the reference's stacked per-core calls compute: a plan makes
 the same launches as one core, and padded channels never reach a kernel.
 On one card a plan changes where the chip's row operations land (the cost
-model, ``engine.cost.estimate_multicore_cost``), not the arithmetic.  The
-reference's ``shard_map`` across devices (``device_parallel=True``) is not
-ported (ROADMAP A9).
+model, ``engine.cost.estimate_multicore_cost``), not the arithmetic.
+
+``device_parallel=True`` is the reference's ``shard_map`` over a ``cores``
+mesh, one CUDA device per core (core ``c`` on :func:`_core_devices`'s
+``c``-th device): each active core's channel slice of ``w_q``/``thr_int``
+(without its padding) is copied to its device once, at compile time
+(``EngineLayer.core_devs``); at run time every weight layer copies its
+spike matrix (or slab) and the core's Vmem slice there, runs B1/B2 on the
+slice, and gathers the outputs back to the engine's device in ``lo``
+order.  Bit-exact with one device, as the channels are independent.
 """
 from __future__ import annotations
 
@@ -88,6 +100,7 @@ __all__ = [
     "SNNEngine",
     "build_engine",
     "compile_engine",
+    "engine_to",
     "init_state",
     "reset_slot",
     "run_chunk",
@@ -144,6 +157,12 @@ class EngineLayer:
     # Per-core slices of a per-channel ``thr_int`` (padding v_max + 1, never
     # fires); None when ``thr_int`` is a scalar.
     thr_cores: Optional[torch.Tensor] = None  # (n_cores, Kc) int32
+    # Autotuned kernel config override (block_m, block_n, block_k, t_blk),
+    # the reference's form; None falls back to ``cfg.block``/``cfg.t_block``.
+    kcfg: Optional[tuple] = None
+    # device_parallel plans: one (lo, hi, device, w (F, hi - lo) int8, thr)
+    # per active core in ``lo`` order, the slice resident on its device.
+    core_devs: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,11 +266,13 @@ def compile_engine(engine: SNNEngine, schedule: CoreSchedule,
     running on ``w_q``/``thr_int`` (module docstring).  Bit-exact with the
     single-core engine under any chunking.
 
-    ``device_parallel``: None or False run the plan on the engine's one
-    device.  True asks for the reference's placement of the cores across
-    devices: it raises ``ValueError`` when the host has fewer than
-    ``n_cores`` CUDA devices (the reference asserts the same), and
-    ``NotImplementedError`` otherwise — that path is ROADMAP A9.
+    ``device_parallel=True`` places core ``c``'s channel slice on the
+    ``c``-th device of :func:`_core_devices` (the CUDA devices) and runs
+    each layer's cores there (module docstring); ``ValueError`` when the
+    host has fewer than ``n_cores`` devices, as the reference asserts.
+    ``None`` auto-selects as the reference does: across devices when the
+    host has ``n_cores`` of the engine's device type, on the engine's one
+    device otherwise.  False keeps the plan on one device.
     """
     if engine.schedule is not None:
         raise ValueError("engine already carries a schedule")
@@ -263,26 +284,60 @@ def compile_engine(engine: SNNEngine, schedule: CoreSchedule,
                 f"the engine executes {qspec}; precision-exploring schedules "
                 "(allowed_specs) are for cost analysis, not execution")
     n_cores = schedule.n_cores
-    if device_parallel:
-        n_dev = torch.cuda.device_count()
-        if n_cores > n_dev:
-            raise ValueError(f"device_parallel needs {n_cores} devices, "
-                             f"host has {n_dev}")
-        if n_cores > 1:
-            raise NotImplementedError(
-                "device_parallel=True: placing a plan's cores on separate "
-                "CUDA devices is not ported yet — see ROADMAP.md A9; leave "
-                "device_parallel unset to run the plan on one device")
+    devices = _core_devices()
+    if device_parallel is None:
+        device_parallel = (1 < n_cores <= len(devices)
+                           and devices[0].type == engine.device.type)
+    if device_parallel and n_cores > len(devices):
+        raise ValueError(f"device_parallel needs {n_cores} devices, "
+                         f"host has {len(devices)}")
     by_node = {ls.node: ls for ls in schedule.layers}
     new_layers = []
     for idx, el in enumerate(engine.layers):
         if el.kind not in ("conv", "fc"):
             new_layers.append(el)
             continue
-        new_layers.append(_place_layer(el, by_node[idx], n_cores, qspec))
+        el = _place_layer(el, by_node[idx], n_cores, qspec)
+        if device_parallel and n_cores > 1:
+            el = _spread_layer(el, devices)
+        new_layers.append(el)
     return dataclasses.replace(engine, layers=tuple(new_layers),
                                schedule=schedule,
                                device_parallel=bool(device_parallel))
+
+
+def _core_devices() -> list:
+    """The devices a ``device_parallel`` plan's cores run on, core ``c`` on
+    the ``c``-th: the host's CUDA devices in index order."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _spread_layer(el: EngineLayer, devices: list) -> EngineLayer:
+    """Copy each active core's channel slice (no padding) to its device."""
+    per_channel = isinstance(el.thr_int, torch.Tensor) and el.thr_int.ndim > 0
+    active = sorted((c for c, (lo, hi) in enumerate(el.core_slices) if hi > lo),
+                    key=lambda c: el.core_slices[c][0])
+    core_devs = []
+    for c in active:
+        lo, hi = el.core_slices[c]
+        dev = devices[c]
+        thr = el.thr_int[lo:hi].contiguous().to(dev) if per_channel else el.thr_int
+        core_devs.append((lo, hi, dev, el.w_q[:, lo:hi].contiguous().to(dev), thr))
+    return dataclasses.replace(el, core_devs=tuple(core_devs))
+
+
+def engine_to(engine: SNNEngine, device) -> SNNEngine:
+    """``engine`` with its weights and per-channel thresholds copied to
+    ``device`` (a fleet replica's device).  The host-side plan fields and a
+    ``device_parallel`` plan's per-core copies stay where they are."""
+    dev = torch.device(device)
+
+    def move(x):
+        return x.to(dev).contiguous() if isinstance(x, torch.Tensor) else x
+
+    layers = tuple(el if el.w_q is None else dataclasses.replace(
+        el, w_q=move(el.w_q), thr_int=move(el.thr_int)) for el in engine.layers)
+    return dataclasses.replace(engine, layers=layers, device=dev)
 
 
 def _place_layer(el: EngineLayer, ls, n_cores: int,
@@ -323,41 +378,86 @@ def _place_layer(el: EngineLayer, ls, n_cores: int,
 # ---------------------------------------------------------------------------
 # One fused layer-timestep, and a slab of timesteps.
 # ---------------------------------------------------------------------------
-def _kernel_args(el: EngineLayer, cfg: EngineConfig) -> dict:
+def _kernel_args(el: EngineLayer, cfg: EngineConfig, thr, block=None) -> dict:
     n = el.neuron
-    return dict(threshold=el.thr_int,
+    return dict(threshold=thr,
                 leak_shift=n.leak_shift if n.model == "lif" else 0,
                 soft_reset=(n.reset == "soft"),
                 vmem_bits=cfg.qspec.vmem_bits,
-                block=cfg.block,
+                block=cfg.block if block is None else block,
                 skip_empty=cfg.skip_empty)
 
 
-def _layer_update(el: EngineLayer, s2: torch.Tensor, v2: torch.Tensor,
-                  cfg: EngineConfig):
+def _on_cores(el: EngineLayer, s: torch.Tensor, v2: torch.Tensor, update):
+    """A ``device_parallel`` layer: each core's slice on its own device.
+
+    ``update(s, w, thr, v)`` runs one core's ``(F, Kc)`` slice against the
+    spikes (copied to the core's device) and the core's ``(rows, Kc)``
+    Vmem slice; its ``(..., Kc)`` outputs come back to ``v2``'s device and
+    are concatenated in ``lo`` order, which restores the channel layout.
+    """
+    home = v2.device
+    v_parts, s_parts = [], []
+    for lo, hi, dev, w, thr in el.core_devs:
+        # One copy either way: across devices ``to`` lays the slice out
+        # densely; on the same device it aliases and ``contiguous`` copies.
+        v_c, s_c = update(s.to(dev), w, thr, v2[..., lo:hi].to(dev).contiguous())
+        v_parts.append(v_c.to(home))
+        s_parts.append(s_c.to(home))
+    return torch.cat(v_parts, dim=-1), torch.cat(s_parts, dim=-1)
+
+
+def _core_update(el: EngineLayer, s2: torch.Tensor, w: torch.Tensor, thr,
+                 v2: torch.Tensor, cfg: EngineConfig):
     """(rows, F) spikes x (F, K) weights + (rows, K) Vmem -> (v', s)."""
     if cfg.backend == "fused":
-        return fused_lif_gemm_int(s2, el.w_q, v2, **_kernel_args(el, cfg))
-    partial = saturate(spike_gemm_ref(s2, el.w_q), cfg.qspec)
+        return fused_lif_gemm_int(s2, w, v2, **_kernel_args(el, cfg, thr))
+    partial = saturate(spike_gemm_ref(s2, w), cfg.qspec)
     n = el.neuron
     # leak_shift=0 means "no leak" (the kernels' convention); neuron_step_int
     # would compute v - (v >> 0) = 0, so route that case through IF dynamics.
     if n.model == "lif" and n.leak_shift == 0:
         n = dataclasses.replace(n, model="if")
-    return neuron_step_int(v2, partial, n, cfg.qspec, el.thr_int)
+    return neuron_step_int(v2, partial, n, cfg.qspec, thr)
+
+
+def _layer_update(el: EngineLayer, s2: torch.Tensor, v2: torch.Tensor,
+                  cfg: EngineConfig):
+    """One layer-timestep, on the engine's device or on the plan's cores."""
+    if el.core_devs:
+        return _on_cores(el, s2, v2, lambda s, w, thr, v: _core_update(
+            el, s, w, thr, v, cfg))
+    return _core_update(el, s2, el.w_q, el.thr_int, v2, cfg)
+
+
+def _layer_kcfg(el: EngineLayer, cfg: EngineConfig):
+    """(gemm block, t_blk) for one layer: autotuned override or config."""
+    if el.kcfg is not None:
+        bm, bn, bk, tb = el.kcfg
+        return (bm, bn, bk), tb
+    return cfg.block, cfg.t_block
 
 
 def _layer_update_tblk(el: EngineLayer, s_stack: torch.Tensor,
                        v2: torch.Tensor, cfg: EngineConfig):
-    """Walk a (T, rows, F) spike stack through one layer in T_blk slabs.
+    """Walk a (T, rows, F) spike stack through one layer in T_blk slabs
+    (the layer's autotuned ``t_blk`` when it has one).
 
     The remainder slab is simply shorter; the Vmem carry threads through
     the slabs, so the result is bit-exact under any slab geometry.
     """
+    block, tb = _layer_kcfg(el, cfg)
+
+    def slab(s, w, thr, v):
+        return fused_lif_gemm_int_tblk(s, w, v, **_kernel_args(el, cfg, thr, block))
+
     v_parts, s_parts = [], []
-    for t0 in range(0, s_stack.shape[0], cfg.t_block):
-        v_traj, s = fused_lif_gemm_int_tblk(s_stack[t0:t0 + cfg.t_block],
-                                            el.w_q, v2, **_kernel_args(el, cfg))
+    for t0 in range(0, s_stack.shape[0], tb):
+        s_slab = s_stack[t0:t0 + tb]
+        if el.core_devs:
+            v_traj, s = _on_cores(el, s_slab, v2, slab)
+        else:
+            v_traj, s = slab(s_slab, el.w_q, el.thr_int, v2)
         v_parts.append(v_traj)
         s_parts.append(s)
         v2 = v_traj[-1]
@@ -367,8 +467,14 @@ def _layer_update_tblk(el: EngineLayer, s_stack: torch.Tensor,
 
 
 def _tblk_active(engine: SNNEngine) -> bool:
-    """Route chunks through the layer-outer tiled path?"""
-    return engine.cfg.backend == "fused" and engine.cfg.t_block > 1
+    """Route chunks through the layer-outer tiled path?  On the fused
+    backend when ``cfg.t_block > 1`` or an autotuned layer's ``t_blk`` is."""
+    if engine.cfg.backend != "fused":
+        return False
+    if engine.cfg.t_block > 1:
+        return True
+    return any(el.kcfg is not None and el.kcfg[3] > 1
+               for el in engine.layers if el.kind in ("conv", "fc"))
 
 
 def _pool_stack(act: torch.Tensor, window: int, stride: int) -> torch.Tensor:

@@ -121,8 +121,10 @@ class StreamSessionManager:
     state is touched.
 
     The session lives on its engine's device.  ``device`` is accepted for
-    the reference's signature: None or the engine's device; placing
-    replicas on other devices is the fleet's (ROADMAP A9).
+    the reference's signature: None or the engine's device.  A session on
+    another device runs an engine copied there:
+    ``CompiledSNN.open_stream(device=...)`` makes (and caches) that copy, as
+    the fleet's replicas do.
     """
 
     def __init__(self, engine: SNNEngine, capacity: int = 4,
@@ -133,10 +135,12 @@ class StreamSessionManager:
                              f"{capacity} and {chunk_T}")
         if device is not None and not _same_device(torch.device(device),
                                                    engine.device):
-            raise NotImplementedError(
-                f"a session lives on its engine's device ({engine.device}); "
-                f"placing session replicas on another device ({device}) is "
-                "the serving fleet's, not ported yet — see ROADMAP.md A9")
+            raise ValueError(
+                f"a session lives on its engine's device ({engine.device}), "
+                f"not on {device} — open it through "
+                "CompiledSNN.open_stream(device=...), which runs the "
+                "deployment's engine copied to that device (the serving "
+                "fleet's replica placement, ROADMAP A9)")
         self.engine = engine
         self.capacity = capacity
         self.chunk_T = chunk_T

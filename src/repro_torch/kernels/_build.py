@@ -15,7 +15,8 @@ otherwise; anything else raises), :func:`check` validates an operand, and
 :func:`raise_on` turns a non-zero ``cudaError_t`` into an exception.  The
 package's one launch counter is :data:`LAUNCHES`: per CUDA entry point,
 the kernel launches since :func:`reset_launches`.  Each wrapper adds one
-(:func:`count_launch`) where it launches its kernel, and nowhere else.
+(:func:`count_launch`, under a lock: replica threads launch at once) where
+it launches its kernel, and nowhere else.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -28,6 +29,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -50,13 +52,20 @@ LAUNCHES = {name: 0 for name in (
     "quant_matmul_int8", "quant_matmul_int4", "wkv_sequence")}
 
 
+# Replica threads of a threaded fleet launch at once: ``+= 1`` on a dict
+# entry is a read-modify-write that loses counts without the lock.
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 class BuildError(RuntimeError):

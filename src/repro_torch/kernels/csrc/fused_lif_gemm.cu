@@ -1038,7 +1038,7 @@ extern "C" int spidr_fused_lif_gemm_int(const void* s, const void* w,
   const TcKernel kernels[4] = {tc_kernel<1>(ldsm), tc_kernel<2>(ldsm),
                                tc_kernel<3>(ldsm), tc_kernel<4>(ldsm)};
   const TcKernel kern = kernels[nt - 1];
-  static bool smem_set[8] = {};  // above 48 KB only after opting in
+  static SmemOptIn smem_set[8];  // above 48 KB only after opting in
   const cudaError_t err = allow_smem(kern, smem_set[2 * (nt - 1) + ldsm]);
   if (err != cudaSuccess) return int(err);
   const Epilogue e{leak_shift, soft_reset, v_min, v_max};
@@ -1091,7 +1091,7 @@ extern "C" int spidr_fused_lif_gemm_int_tblk(const void* s, const void* w,
     const TblkKernel kernels[4] = {tblk_kernel<1>(ldsm), tblk_kernel<2>(ldsm),
                                    tblk_kernel<3>(ldsm), tblk_kernel<4>(ldsm)};
     const TblkKernel kern = kernels[nt - 1];
-    static bool smem_set[8] = {};
+    static SmemOptIn smem_set[8];
     const cudaError_t err = allow_smem(kern, smem_set[2 * (nt - 1) + ldsm]);
     if (err != cudaSuccess) return int(err);
     kern<<<dim3(grid_x, (N + TC_NB - 1) / TC_NB), TC_THREADS, smem, st>>>(
@@ -1146,7 +1146,7 @@ extern "C" int spidr_fused_lif_gemm_f32(const void* s, const void* w,
     const F32Kernel kernels[4] = {f32_kernel<1>(ldsm), f32_kernel<2>(ldsm),
                                   f32_kernel<3>(ldsm), f32_kernel<4>(ldsm)};
     const F32Kernel kern = kernels[nt - 1];
-    static bool smem_set[8] = {};
+    static SmemOptIn smem_set[8];
     const cudaError_t err = allow_smem(kern, smem_set[2 * (nt - 1) + ldsm]);
     if (err != cudaSuccess) return int(err);
     kern<<<dim3(grid_x, (N + TC_NB - 1) / TC_NB), F32_THREADS, smem,

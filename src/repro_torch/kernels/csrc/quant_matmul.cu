@@ -61,6 +61,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "smem_optin.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -481,14 +483,10 @@ int launch_decode(const void* x, const void* w, const void* scale, void* out,
   if (M > MT || rpb <= 0 || rpb % D::U != 0) return int(cudaErrorInvalidValue);
   const int splits = (rows + rpb - 1) / rpb;
   if (splits > MAX_CLUSTER) return int(cudaErrorInvalidValue);
-  static bool smem_set = false;  // above 48 KB only after opting in
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        qmm_decode_kernel<INT4, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        D::SMEM);
-    if (err != cudaSuccess) return int(err);
-    smem_set = true;
-  }
+  static SmemOptIn smem_set;  // above 48 KB only after opting in, per device
+  const cudaError_t opt_err =
+      opt_in_smem(qmm_decode_kernel<INT4, MT>, D::SMEM, smem_set);
+  if (opt_err != cudaSuccess) return int(opt_err);
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = 1;

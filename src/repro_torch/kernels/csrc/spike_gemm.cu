@@ -248,7 +248,7 @@ extern "C" int spidr_spike_gemm(const void* s, const void* w,
     const RingKernel kernels[4] = {ring_kernel<1>(ldsm), ring_kernel<2>(ldsm),
                                    ring_kernel<3>(ldsm), ring_kernel<4>(ldsm)};
     const RingKernel kern = kernels[nt - 1];
-    static bool smem_set[8] = {};
+    static SmemOptIn smem_set[8];
     const cudaError_t err = allow_smem(kern, smem_set[2 * (nt - 1) + ldsm]);
     if (err != cudaSuccess) return int(err);
     kern<<<dim3(grid_x, (N + TC_NB - 1) / TC_NB), TC_THREADS, smem, st>>>(

@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_optin.cuh"
+
 namespace {
 
 constexpr int TC_BM = 64;           // rows per M tile: 4 warps x 16
@@ -199,14 +201,10 @@ __device__ __forceinline__ void tile_mma(const uint8_t* st, int K,
 }
 
 // Launch-time plumbing: a kernel above 48 KB of dynamic shared memory needs
-// the attribute once per instantiation.
+// the attribute once per instantiation and device (smem_optin.cuh).
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kern, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_MAX);
-  if (err == cudaSuccess) done = true;
-  return err;
+inline cudaError_t allow_smem(Kernel kern, SmemOptIn& flags) {
+  return opt_in_smem(kern, TC_SMEM_MAX, flags);
 }
 
 }  // namespace

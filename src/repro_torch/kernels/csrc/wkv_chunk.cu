@@ -63,6 +63,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "smem_optin.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -524,14 +526,10 @@ int launch(const void* r, const void* k, const void* v, const void* lw,
            const void* u, const void* s0, void* y, void* s1, int B, int S,
            int H, int u_bstride, int cluster, int per_block, cudaStream_t stream) {
   const int smem = Layout<C, N>::floats(per_block) * int(sizeof(float));
-  static bool smem_set = false;  // above 48 KB only after opting in
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        wkv_kernel<C, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Layout<C, N>::floats(LMAX) * int(sizeof(float)));
-    if (err != cudaSuccess) return int(err);
-    smem_set = true;
-  }
+  static SmemOptIn smem_set;  // above 48 KB only after opting in, per device
+  const cudaError_t opt_err = opt_in_smem(
+      wkv_kernel<C, N>, Layout<C, N>::floats(LMAX) * int(sizeof(float)), smem_set);
+  if (opt_err != cudaSuccess) return int(opt_err);
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = cluster;

@@ -7,6 +7,7 @@
     python -m repro_torch.launch.serve --snn gesture --torch --device cpu
     python -m repro_torch.launch.serve --snn gesture --streaming --chunk-T 2 --snapshot-dir snap --snapshot-every 1
     python -m repro_torch.launch.serve --snn gesture --streaming --device cpu --metrics-out m.prom --trace-out t.json
+    python -m repro_torch.launch.serve --snn gesture --streaming --replicas 2 --requests 12
 
 LM (``--arch``): the model with random weights from a fixed seed, at its
 full published width unless ``--reduced`` asks for the CPU-sized config
@@ -18,19 +19,20 @@ Only ``rwkv6-7b`` (the ``ssm`` family) is ported.
 
 SNN (``--snn``): the paper's Table II network at full width with random
 weights from a fixed seed.  One ``DeployTarget`` declares the precision,
-backend and ``t_block``.  Without ``--streaming`` the ``CompiledSNN``
-serves whole streams through a :class:`~repro_torch.serving.BatchWorker`:
-requests are packed into fixed-capacity batches and each batch is one
-engine run.  With ``--streaming`` one
-:class:`~repro_torch.serving.StreamWorker` serves them as live streams:
+backend and ``t_block``, and the ``CompiledSNN`` serves through
+``spidr.serve`` on a fleet of ``--replicas`` replicas (one by default).
+Without ``--streaming`` the fleet serves whole streams (``batch=True``):
+each replica packs requests into fixed-capacity batches, one engine run
+per batch.  With ``--streaming`` each replica serves live streams:
 ``--capacity`` persistent-Vmem slots advanced ``--chunk-T`` timesteps per
 tick, incremental replies, ``--watchdog-s`` rewind-and-replay and
-``--snapshot-dir``/``--snapshot-every`` snapshots.  ``--metrics-out``
-(``--metrics-every``), ``--trace-out`` and ``--log-json`` switch on the
-``repro_torch.obs`` telemetry.
+``--snapshot-dir``/``--snapshot-every`` snapshots (under
+``snapshot-dir/replica<i>``).  ``--metrics-out`` (``--metrics-every``),
+``--trace-out`` and ``--log-json`` switch on the ``repro_torch.obs``
+telemetry.  The pre-fleet names ``SNNServer``, ``StreamingSNNServer`` and
+``SNNRequest`` remain as deprecated aliases of the serving workers.
 
-Flags of the JAX CLI whose code is not ported yet exit with an error that
-names the ROADMAP item that ports them.
+The JAX CLI's ``--jnp`` is this CLI's ``--torch``, and it exits naming it.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import dataclasses
 import logging
 import sys
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -55,9 +58,8 @@ from ..snn.data import make_flow_batch, make_gesture_batch
 
 log = logging.getLogger("repro_torch.serve")
 
-# Flags of ``repro.launch.serve`` that this port does not serve yet.
+# Flags of ``repro.launch.serve`` that this port spells otherwise.
 _NOT_PORTED = {
-    "--replicas": "A9 (serving fleet)",
     "--jnp": "nothing: the port's plain backend is --torch",
 }
 
@@ -196,6 +198,10 @@ def _parser() -> argparse.ArgumentParser:
                          "chunks, replies are incremental")
     ap.add_argument("--chunk-T", type=int, default=2, dest="chunk_T",
                     help="timesteps per delivered chunk in --streaming mode")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="SNN path: serve through a fleet of N engine "
+                         "replicas (spidr.serve) — streams are scheduled "
+                         "across them")
     ap.add_argument("--watchdog-s", type=float, default=None,
                     dest="watchdog_s",
                     help="--streaming: per-tick watchdog deadline; a hung "
@@ -279,11 +285,53 @@ def serve_lm(args: argparse.Namespace) -> Server:
     return server
 
 
-def serve_snn(args: argparse.Namespace):
-    """Compile the network, submit ``args.requests`` streams, serve them.
+# ---------------------------------------------------------------------------
+# SNN event-stream serving.
+# ---------------------------------------------------------------------------
+#: Deprecated alias -- the request object lives in ``repro_torch.serving``.
+SNNRequest = StreamRequest
 
-    Returns the :class:`BatchWorker`, or with ``--streaming`` the
-    :class:`StreamWorker` (shut down, results on ``done``).
+
+def _warn_deprecated(old: str) -> None:
+    warnings.warn(
+        f"repro_torch.launch.serve.{old} is deprecated; serve through "
+        "spidr.serve(compiled, spidr.ServeConfig(...)) instead",
+        DeprecationWarning, stacklevel=3)
+
+
+class SNNServer(BatchWorker):
+    """Deprecated shim: use ``spidr.serve(compiled, batch=True)``.
+
+    The whole-stream batching loop lives in
+    :class:`repro_torch.serving.BatchWorker`; this subclass only adds the
+    ``DeprecationWarning``.
+    """
+
+    def __init__(self, compiled, capacity: int = 4):
+        _warn_deprecated("SNNServer")
+        super().__init__(compiled, capacity)
+
+
+class StreamingSNNServer(StreamWorker):
+    """Deprecated shim: use ``spidr.serve(compiled, spidr.ServeConfig(...))``.
+
+    The stateful continuous-batching loop lives in
+    :class:`repro_torch.serving.StreamWorker`; this subclass only adds the
+    ``DeprecationWarning``.  ``restore`` is inherited and returns this
+    class.
+    """
+
+    def __init__(self, *args, **kwargs):
+        _warn_deprecated("StreamingSNNServer")
+        super().__init__(*args, **kwargs)
+
+
+def serve_snn(args: argparse.Namespace):
+    """Compile the network, submit ``args.requests`` streams to a fleet of
+    ``args.replicas`` replicas (``spidr.serve``) and serve them.
+
+    Returns the :class:`~repro_torch.serving.Fleet`, shut down, with every
+    finished request on ``done`` and each replica's worker on ``workers``.
     """
     dev = resolve_device(args.device)
     spec = (spidr_gesture if args.snn == "gesture" else spidr_optflow).CONFIG
@@ -300,54 +348,81 @@ def serve_snn(args: argparse.Namespace):
                                 stream_capacity=args.capacity)
     compiled = spidr.compile(spec, params, target, device=dev)
     if compiled.schedule is not None:
-        log.info("compiled %s onto %d cores (%d channel-split layers)\n%s",
-                 spec.name, args.n_cores, compiled.schedule.n_split_layers,
+        log.info("compiled %s onto %d cores (%d channel-split layers, "
+                 "device_parallel=%s)\n%s", spec.name, args.n_cores,
+                 compiled.schedule.n_split_layers,
+                 compiled.engine.device_parallel,
                  compiled.schedule.describe())
 
     make = make_gesture_batch if args.snn == "gesture" else make_flow_batch
     ev, _ = make(torch.Generator().manual_seed(1), batch=args.requests,
                  timesteps=spec.timesteps, hw=spec.input_hw, device="cpu")
+    ev = ev.numpy()
     # Per-stream pipeline timelines need per-chunk input counts, which only
     # a multi-core plan prices per core.
     want_timeline = bool(args.trace_out) and compiled.schedule is not None
     if args.streaming:
         return _serve_streams(args, compiled, ev, dev, want_timeline)
 
-    worker = BatchWorker(compiled, capacity=args.capacity)
+    fleet = spidr.serve(compiled, spidr.ServeConfig(
+        n_replicas=args.replicas, capacity=args.capacity, batch=True,
+        max_queue=max(64, args.requests)))
     for r in range(args.requests):
-        worker.submit(StreamRequest(rid=r, events=ev[:, r].numpy()))
+        fleet.submit(ev[:, r], rid=r)
     t0 = time.monotonic()
-    while worker.step():
-        pass
+    fleet.drain()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.monotonic() - t0
-    lat = [r.done_at - r.submitted_at for r in worker.done]
-    log.info("served %d %s streams (%dx%d, %d timesteps) in %.3fs "
-             "(%.2f streams/s, %d batches); latency p50 %.3fs; backend=%s "
-             "t_block=%d device=%s", len(worker.done), args.snn,
-             spec.input_hw[0], spec.input_hw[1], spec.timesteps, dt,
-             len(worker.done) / dt, worker.batches, float(np.median(lat)),
-             compiled.engine.cfg.backend, args.t_block, dev)
-    mean_counts = worker.total_input_counts / max(len(worker.done), 1)
+    done = fleet.done
+    lat = [r.done_at - r.submitted_at for r in done]
+    total_counts = None
+    batches = 0
+    for w in fleet.workers:
+        batches += w.batches
+        if w.total_input_counts is not None:
+            total_counts = (w.total_input_counts if total_counts is None
+                            else total_counts + w.total_input_counts)
+    mean_counts = total_counts / max(len(done), 1)
+    cost = compiled.cost(input_counts=mean_counts)
+    log.info(
+        "served %d %s streams (%d timesteps each) over %d replica(s) in "
+        "%.2fs (%.1f streams/s, %d batches); latency p50 %.3fs; backend=%s "
+        "t_block=%d device=%s", len(done), args.snn, spec.timesteps,
+        fleet.n_replicas, dt, len(done) / dt, batches, float(np.median(lat)),
+        compiled.engine.cfg.backend, args.t_block, dev)
+    if compiled.schedule is None:
+        log.info(
+            "chip estimate/stream: %.2f ms @%dMHz, %.1f uJ, sparsity "
+            "%.1f%%, async speedup %.2fx", cost.latency_ms, 50,
+            cost.energy_uj, 100 * cost.mean_sparsity, cost.async_speedup)
+    else:
+        log.info(
+            "multi-core attribution/stream: makespan %d cycles, per-core "
+            "busy %s, routing %s, load imbalance %.2fx, energy %.1f uJ "
+            "(%.2f uJ routing)", cost.makespan_cycles,
+            cost.busy_cycles.tolist(), cost.routing_cycles.tolist(),
+            cost.load_imbalance, cost.energy_uj, cost.routing_energy_uj)
     _export_telemetry(compiled, args.metrics_out, args.trace_out,
                       [("batch-mean", mean_counts)] if want_timeline else [])
-    return worker
+    fleet.shutdown()
+    return fleet
 
 
-def _serve_streams(args, compiled, ev, dev, want_timeline) -> StreamWorker:
-    """``--streaming``: every request through one :class:`StreamWorker`."""
+def _serve_streams(args, compiled, ev, dev, want_timeline):
+    """``--streaming``: every request through a fleet of stream workers."""
     spec = compiled.spec
-    worker = StreamWorker(compiled, capacity=args.capacity,
-                          chunk_T=args.chunk_T, watchdog_s=args.watchdog_s,
-                          snapshot_dir=args.snapshot_dir,
-                          snapshot_every=args.snapshot_every,
-                          collect_chunk_counts=want_timeline)
+    fleet = spidr.serve(compiled, spidr.ServeConfig(
+        n_replicas=args.replicas, capacity=args.capacity,
+        chunk_T=args.chunk_T, max_queue=max(64, args.requests),
+        watchdog_s=args.watchdog_s, snapshot_dir=args.snapshot_dir,
+        snapshot_every=args.snapshot_every,
+        collect_chunk_counts=want_timeline))
     for r in range(args.requests):
-        worker.submit(StreamRequest(rid=r, events=ev[:, r].numpy()))
+        fleet.submit(ev[:, r], rid=r)
     t0 = time.monotonic()
     ticks = 0
-    while worker.step():
+    while fleet.step():
         ticks += 1
         if args.metrics_out and args.metrics_every \
                 and ticks % args.metrics_every == 0:
@@ -355,25 +430,25 @@ def _serve_streams(args, compiled, ev, dev, want_timeline) -> StreamWorker:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.monotonic() - t0
-    done = worker.done
+    done = fleet.done
     lat = [r.done_at - r.submitted_at for r in done]
     ttfr = [r.first_reply_at - r.submitted_at for r in done]
-    log.info("streamed %d %s streams (%dx%d, %d timesteps, chunk_T=%d, "
-             "capacity %d) in %.3fs (%.2f streams/s, %d ticks, %d rewinds); "
-             "first-reply p50 %.3fs; latency p50 %.3fs; backend=%s "
-             "t_block=%d device=%s", len(done), args.snn, spec.input_hw[0],
-             spec.input_hw[1], spec.timesteps, args.chunk_T, args.capacity,
-             dt, len(done) / dt, ticks, worker.restarts,
-             float(np.median(ttfr)), float(np.median(lat)),
-             compiled.engine.cfg.backend, args.t_block, dev)
+    log.info(
+        "streamed %d %s streams (%d timesteps, chunk_T=%d) over %d "
+        "replica(s) in %.2fs (%.1f streams/s, %d fleet ticks, %d rewinds); "
+        "first-reply p50 %.3fs; latency p50 %.3fs; backend=%s t_block=%d "
+        "device=%s", len(done), args.snn, spec.timesteps, args.chunk_T,
+        fleet.n_replicas, dt, len(done) / dt, ticks,
+        sum(w.restarts for w in fleet.workers), float(np.median(ttfr)),
+        float(np.median(lat)), compiled.engine.cfg.backend, args.t_block, dev)
     log.info("chip estimate/stream (cumulative): %.0f cycles p50, %.1f uJ p50",
              float(np.median([r.cycles for r in done])),
              float(np.median([r.energy_uj for r in done])))
     _export_telemetry(compiled, args.metrics_out, args.trace_out,
                       [(r.rid, r.input_counts) for r in done]
                       if want_timeline else [])
-    worker.shutdown()
-    return worker
+    fleet.shutdown()
+    return fleet
 
 
 def _export_telemetry(compiled, metrics_out, trace_out, stream_counts) -> None:

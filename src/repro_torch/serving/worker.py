@@ -12,10 +12,10 @@ The two SNN serving modes, on one shared submit/queue/result base:
     tolerance and snapshot/restore durability.
 
 The counterparts of ``repro.serving.worker``'s, telemetry included (the
-process-wide ``repro_torch.obs`` registry and tracer, off by default).  The
-fleet that drives several workers as replicas (``spidr.serve``), and with
-it the scheduler's view of a worker (``busy``, ``free_capacity``,
-``inflight``), is ROADMAP A9.
+process-wide ``repro_torch.obs`` registry and tracer, off by default).
+Both expose the scheduler's view of a worker (``busy``, ``free_capacity``,
+``inflight``) and the ``device`` they run on, which the fleet
+(``spidr.serve``, :mod:`repro_torch.serving.fleet`) drives them through.
 """
 from __future__ import annotations
 
@@ -92,6 +92,20 @@ class _WorkerBase:
             raise RuntimeError(
                 "worker is shut down — step() after shutdown() is an error")
 
+    # Scheduler interface --------------------------------------------------
+    @property
+    def busy(self) -> bool:
+        """True while the worker holds unfinished work."""
+        return bool(self.waiting)
+
+    def free_capacity(self) -> int:
+        """Streams the scheduler may place here before the next tick."""
+        raise NotImplementedError
+
+    def inflight(self) -> list:
+        """Every accepted-but-unfinished request (crash re-placement)."""
+        return list(self.waiting)
+
 
 class BatchWorker(_WorkerBase):
     """Fixed-capacity batched SNN inference worker.
@@ -108,6 +122,13 @@ class BatchWorker(_WorkerBase):
         self.total_input_counts = None
         self.total_spike_counts = None
         self.batches = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.compiled.device
+
+    def free_capacity(self) -> int:
+        return max(0, self.capacity - len(self.waiting))
 
     def step(self) -> bool:
         """Serve up to ``capacity`` waiting requests in one batch."""
@@ -172,6 +193,10 @@ class StreamWorker(_WorkerBase):
         every N ticks; :meth:`restore` resumes it in a fresh process,
         bit-exactly (``tools/upgrade_drill_torch.py`` SIGKILLs a serving
         process mid-tick and checks that no stream loses state).
+
+    ``device`` places the session on another device than the deployment's:
+    the worker then runs the deployment's engine copied to that device
+    (``CompiledSNN.open_stream(device=...)``), as a fleet replica does.
     """
 
     def __init__(self, compiled, capacity: int = 4, chunk_T: int = 2, *,
@@ -219,6 +244,22 @@ class StreamWorker(_WorkerBase):
     def restarts(self) -> int:
         """Rewind-and-replay count since the worker started."""
         return self._step.state["restarts"]
+
+    @property
+    def device(self) -> torch.device:
+        """The device the worker's session (and engine copy) lives on."""
+        return self.sessions.device
+
+    @property
+    def busy(self) -> bool:
+        return bool(self.slots or self.waiting)
+
+    def free_capacity(self) -> int:
+        return max(0, self.sessions.capacity - self.sessions.occupancy
+                   - len(self.waiting))
+
+    def inflight(self) -> list:
+        return list(self.slots.values()) + list(self.waiting)
 
     def shutdown(self) -> None:
         """Stop accepting work and retire the session (idempotent)."""

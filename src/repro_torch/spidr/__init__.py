@@ -17,7 +17,16 @@
         update = session.step({slot: events[0:2, 0]})[slot]  # SlotUpdate
         compiled.snapshot(path)                   # weights + live sessions
     resumed = spidr.restore(path)                 # in a fresh process too
+
+    fleet = spidr.serve(compiled, n_replicas=2)   # replicas, scheduling,
+    handle = fleet.submit(events[:, 0])           #  shedding, live migration
+    fleet.drain(); fleet.shutdown()
+
+    tuned = spidr.compile(spec, params, spidr.DeployTarget(autotune=True))
+    tuned.roofline(batch=4)["bound_us"]           # the H100 bound of a chunk
 """
+from ..serving import (Fleet, FleetOverloaded, ServeConfig, SessionScheduler,
+                       StreamHandle, StreamProgress, serve)
 from .compiled import (CompiledSNN, SlotUpdate, StreamSession, VerifyReport,
                        compile, load, read_snapshot_meta, restore)
 from .target import BACKENDS, PRECISION_PAIRS, DeployTarget
@@ -26,12 +35,19 @@ __all__ = [
     "BACKENDS",
     "CompiledSNN",
     "DeployTarget",
+    "Fleet",
+    "FleetOverloaded",
     "PRECISION_PAIRS",
+    "ServeConfig",
+    "SessionScheduler",
     "SlotUpdate",
+    "StreamHandle",
+    "StreamProgress",
     "StreamSession",
     "VerifyReport",
     "compile",
     "load",
     "read_snapshot_meta",
     "restore",
+    "serve",
 ]

@@ -31,9 +31,16 @@ bit-exact with single-core execution.  A :class:`CompiledSNN` offers
                              reference's: either reads the other's)
   ``verify(events)``         the engine against the python-loop reference
                              and a plan against the single-core engine
+  ``roofline(batch)``        the analytic bound of a chunk on the H100
+                             (``roofline.PerfModel``), per weight layer
+  ``engine_on(device)``      the engine copied to another device, once per
+                             device (a fleet replica's)
 
-The static-analysis report (ROADMAP A11), the roofline (A8) and the QAT
-round trip of ``verify`` (A10) belong to later slices of the port.
+``DeployTarget(autotune=True)`` measures each weight layer's ``t_block`` on
+the deployment's device (``kernels.autotune``) and bakes the winner into
+the engine as ``EngineLayer.kcfg``; every candidate is bit-exact.  The
+static-analysis report (ROADMAP A11) and the QAT round trip of ``verify``
+(A10) belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ from ..engine.inference import (
     SNNEngine,
     build_engine,
     compile_engine,
+    engine_to,
     run_engine,
     run_reference,
 )
@@ -66,6 +74,7 @@ from ..engine.streaming import (
     SESSION_SCHEMA_VERSION,
     SlotUpdate,
     StreamSessionManager,
+    _same_device,
 )
 from ..obs import metrics as obs_metrics
 from ..obs import timeline as obs_timeline
@@ -100,6 +109,63 @@ def _engine_config(target: DeployTarget) -> EngineConfig:
         block=tuple(target.block),
         t_block=target.t_block,
     )
+
+
+def _autotune_engine(base: SNNEngine, spec: SNNSpec, target: DeployTarget,
+                     cfg: EngineConfig) -> SNNEngine:
+    """Bake measured per-layer kernel configs into ``base``.
+
+    Consults :func:`repro_torch.kernels.autotune.autotune_layer` per weight
+    layer (cached by shape+precision, optionally persisted via
+    ``$SPIDR_AUTOTUNE_CACHE``), racing the candidates on ``base``'s device
+    (B2 at the layer's shape on the card), and attaches the winner as
+    ``EngineLayer.kcfg``.  Every candidate is bit-exact, so tuning changes
+    wall time only, never results.
+    """
+    from ..kernels.autotune import autotune_layer
+
+    tracer = obs_trace.default_tracer()
+    reg = obs_metrics.default_registry()
+    t_sweep = time.perf_counter()
+    shapes = iter(spec.layer_shapes())
+    new_layers = []
+    with tracer.span("autotune", cat="compile", network=spec.name):
+        for li, el in enumerate(base.layers):
+            if el.kind not in ("conv", "fc"):
+                new_layers.append(el)
+                continue
+            sh = next(shapes)
+            rows = sh.out_positions if el.kind == "conv" else 1
+            with tracer.span("autotune.layer", cat="compile", layer=li,
+                             kind=el.kind, rows=rows,
+                             channels=sh.out_channels):
+                winner = autotune_layer(
+                    rows, sh.fan_in, sh.out_channels,
+                    target.weight_bits, target.vmem_bits,
+                    timesteps=min(spec.timesteps, 8),
+                    sparsity=target.assumed_sparsity,
+                    skip_empty=cfg.skip_empty, device=base.device)
+            if reg:
+                # Info-gauge: the chosen KernelConfig rides in the labels
+                # (value is a constant 1, Prometheus "info" idiom).
+                bm, bn, bk, tb = winner.kcfg
+                reg.gauge(
+                    "spidr_autotune_kcfg_info",
+                    "Chosen per-layer kernel config (info gauge)",
+                    labels={"network": spec.name, "layer": li,
+                            "kind": el.kind, "block_m": bm, "block_n": bn,
+                            "block_k": bk, "t_block": tb}).set(1.0)
+            new_layers.append(dataclasses.replace(el, kcfg=winner.kcfg))
+    if reg:
+        reg.counter(
+            "spidr_autotune_seconds_total",
+            "Wall seconds spent in autotune sweeps").inc(
+                time.perf_counter() - t_sweep)
+        reg.counter(
+            "spidr_autotune_layers_total",
+            "Weight layers autotuned").inc(
+                sum(1 for el in base.layers if el.kind in ("conv", "fc")))
+    return dataclasses.replace(base, layers=tuple(new_layers))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +227,11 @@ class StreamSession:
         return self._manager.occupancy
 
     @property
+    def device(self) -> torch.device:
+        """The device the session's state and engine live on."""
+        return self._manager.device
+
+    @property
     def active(self) -> tuple:
         """Per-slot open flags (index = slot id)."""
         return tuple(self._manager.active)
@@ -174,6 +245,15 @@ class StreamSession:
         """Restore the session to a :meth:`state_dict` snapshot bit-exactly
         (the session must have matching capacity/engine geometry)."""
         self._manager.load_state_dict(d)
+
+    def record_stream(self, stream) -> None:
+        """Mark the session's resident CUDA tensors as in use on ``stream``
+        (a fleet replica's), so the caching allocator does not hand their
+        memory to another stream while ``stream`` may still read them."""
+        st = self._manager.state
+        for t in (*st.vmem, st.readout_acc, st.out_counts, st.in_counts):
+            if t is not None and t.is_cuda:
+                t.record_stream(stream)
 
     @property
     def closed(self) -> bool:
@@ -278,6 +358,7 @@ class CompiledSNN:
         self.params = params
         self._base_engine = engine if base_engine is None else base_engine
         self._sessions: list = []   # every StreamSession opened here
+        self._device_engines: dict = {}   # device -> engine copied there
 
     @property
     def device(self) -> torch.device:
@@ -291,6 +372,23 @@ class CompiledSNN:
     @property
     def n_cores(self) -> int:
         return self.target.n_cores
+
+    def engine_on(self, device=None) -> SNNEngine:
+        """The deployment's engine on ``device``: :attr:`engine` itself for
+        None or its own device, else a copy of its weights and thresholds
+        made there on first use and cached (one per device).  A fleet
+        replica placed on another card runs such a copy."""
+        if device is None:
+            return self.engine
+        dev = torch.device(device)
+        if _same_device(dev, self.device):
+            return self.engine
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = str(dev)
+        if key not in self._device_engines:
+            self._device_engines[key] = engine_to(self.engine, dev)
+        return self._device_engines[key]
 
     def __repr__(self) -> str:
         return (f"CompiledSNN({self.spec.name!r}, "
@@ -334,7 +432,9 @@ class CompiledSNN:
         timelines).  ``metrics`` / ``tracer``: None uses the process-wide
         ``repro_torch.obs`` defaults (off unless enabled), a private
         registry/tracer isolates, False pins telemetry off.  ``device``:
-        None or the deployment's device (another device is ROADMAP A9).
+        None for the deployment's device; another device runs the session
+        on :meth:`engine_on`'s copy of the engine there (a fleet replica),
+        bit-identical to the deployment's own device.
         """
         capacity = self.target.stream_capacity if capacity is None \
             else capacity
@@ -343,11 +443,10 @@ class CompiledSNN:
                               hint="concurrent persistent-Vmem stream slots")
         _require_positive_int("chunk_T", chunk_T,
                               hint="timesteps delivered per streaming tick")
-        session = StreamSession(self.engine, capacity=capacity,
+        session = StreamSession(self.engine_on(device), capacity=capacity,
                                 chunk_T=chunk_T, metrics=metrics,
                                 tracer=tracer,
-                                collect_chunk_counts=collect_chunk_counts,
-                                device=device)
+                                collect_chunk_counts=collect_chunk_counts)
         self._sessions.append(session)
         return session
 
@@ -419,6 +518,34 @@ class CompiledSNN:
         if path is not None:
             obs_timeline.write_chrome_trace(events, path)
         return events
+
+    # -- performance model -------------------------------------------------
+    def roofline(self, batch: int = 1, timesteps: Optional[int] = None,
+                 nonzero_tile_fracs=None) -> dict:
+        """Predicted wall-time bound for one chunk on this deployment.
+
+        Prices the compiled engine's tiling (each layer's autotuned
+        ``t_blk`` when it has one, else the target's ``t_block``) through
+        :class:`repro_torch.roofline.PerfModel` at the H100's peaks:
+        bytes moved + MACs at sparsity per weight layer, ``bound_us`` the
+        summed max(compute, memory) bound.  The tile priced is the CUDA
+        ring's ``(64, 32, 32)`` (``kernels._ring``), where the reference
+        prices the MXU block; the byte model reads the weights once per
+        64-row tile, while the ring keeps a block's weight slab resident,
+        so the bound is conservative on weights.  ``nonzero_tile_fracs``
+        is a per-weight-layer list of nonzero spike-tile fractions
+        (``kernels.spike_tile_bitmap``); the default prices dense spikes.
+        """
+        from ..kernels._ring import BM, KSTEP, NB
+        from ..roofline.analysis import PerfModel
+
+        tile = (BM, NB, KSTEP)
+        kcfgs = [None if el.kcfg is None else tile + (el.kcfg[3],)
+                 for el in self._base_engine.layers if el.kind in ("conv", "fc")]
+        return PerfModel().network_bound(
+            self.spec, batch=batch, timesteps=timesteps,
+            t_block=self._base_engine.cfg.t_block, block=tile,
+            nonzero_tile_fracs=nonzero_tile_fracs, layer_kcfgs=kcfgs)
 
     def save(self, path, step: int = 0) -> None:
         """Persist the deployment's integer artifact under ``path``.
@@ -603,6 +730,8 @@ def compile(network, params=None, target: Optional[DeployTarget] = None, *,
             f"{type(network).__name__} — build a spec with "
             "core.network.gesture_net/optical_flow_net (or a config's "
             "reduced()), or an exported network with snn.export")
+    if target.autotune and cfg.backend == "fused":
+        base = _autotune_engine(base, spec, target, cfg)
     engine = _apply_schedule(base, spec, target, cfg)
     return CompiledSNN(spec=spec, target=target, engine=engine,
                        base_engine=base, exported=exported, params=params)
@@ -806,6 +935,8 @@ def _compile_from_arrays(spec: SNNSpec, target: DeployTarget,
                                           target_hw=layer.target_hw))
         base = SNNEngine(spec=spec, cfg=cfg, layers=tuple(layers),
                          device=device)
+    if target.autotune and cfg.backend == "fused":
+        base = _autotune_engine(base, spec, target, cfg)
     engine = _apply_schedule(base, spec, target, cfg)
     return CompiledSNN(spec=spec, target=target, engine=engine,
                        base_engine=base, exported=exported)

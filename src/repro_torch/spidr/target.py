@@ -9,8 +9,7 @@ a :class:`~repro_torch.spidr.CompiledSNN`.
 Validation is eager and actionable: an unsupported setting raises
 ``ValueError`` naming the nearest supported alternative(s) — for example
 ``DeployTarget(weight_bits=5, vmem_bits=9)`` names ``(4, 7)`` and
-``(6, 11)``.  Settings whose code is not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that ports it.
+``(6, 11)``.
 """
 from __future__ import annotations
 
@@ -51,22 +50,24 @@ class DeployTarget:
     Topology
         ``n_cores`` > 1 routes the build through the multi-core compiler
         (partition/place/schedule onto a core grid), bit-exact with
-        single-core execution.  ``device_parallel=True`` asks for the
-        cores on separate CUDA devices: it raises when the host has fewer
-        than ``n_cores`` devices, and otherwise too, as that placement is
-        not ported yet (ROADMAP A9); None or False run the plan on one
-        device.  ``force_mode`` / ``stationarity`` pin the compiler's
-        per-layer operating mode (1/2) and weight-vs-Vmem stationarity;
-        ``assumed_sparsity`` feeds its load-balancing heuristics.  They
-        move the modeled cost, never the computed spikes.
+        single-core execution.  ``device_parallel=True`` places the cores
+        on separate CUDA devices, one per core (``ValueError`` when the
+        host has fewer than ``n_cores``); None does so when the host has
+        them, False runs the plan on one device.  ``force_mode`` /
+        ``stationarity`` pin the compiler's per-layer operating mode (1/2)
+        and weight-vs-Vmem stationarity; ``assumed_sparsity`` feeds its
+        load-balancing heuristics.  They move the modeled cost, never the
+        computed spikes.
 
     Execution
         ``backend`` is ``"fused"`` (the CUDA kernels), ``"torch"`` (the
         plain integer datapath) or ``"reference"`` (the python-loop
         oracle).  ``skip_empty`` and ``block`` configure the fused kernels;
         ``t_block`` > 1 switches them to the Vmem-stationary multi-timestep
-        kernel.  ``autotune`` (per-layer measured kernel configs) is not
-        ported yet (ROADMAP A8) and must stay False.
+        kernel.  ``autotune=True`` measures each weight layer's
+        ``t_block`` on the deployment's device at compile time
+        (``kernels.autotune``, cached by shape and precision) and
+        overrides ``t_block`` per layer; it needs the fused backend.
 
     Streaming
         ``stream_capacity`` slots of persistent Vmem and ``chunk_T``
@@ -116,10 +117,11 @@ class DeployTarget:
         _require_positive_int(
             "t_block", self.t_block,
             hint="timesteps per Vmem-stationary kernel slab; 1 disables tiling")
-        if self.autotune:
-            raise NotImplementedError(
-                "autotune=True: per-layer kernel-config autotuning is not "
-                "ported yet — see ROADMAP.md A8; set t_block instead")
+        if self.autotune and self.backend != "fused":
+            raise ValueError(
+                f"autotune=True tunes the fused CUDA kernels but "
+                f"backend={self.backend!r} never runs them — deploy with "
+                "backend='fused' (or drop autotune)")
         if self.force_mode is not None and self.force_mode not in (1, 2):
             raise ValueError(
                 f"force_mode={self.force_mode!r} unsupported — the macro "

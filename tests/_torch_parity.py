@@ -33,8 +33,8 @@ def jax_ref():
         from repro.core import (cim_macro, energy, layers, modes, network, neuron,
                                 pipeline, quant, s2a, zero_skip)
         from repro.engine import cost, inference, streaming
-        from repro.kernels import (fused_lif_gemm, lif_step, quant_matmul, ref,
-                                   spike_gemm, wkv_chunk)
+        from repro.kernels import (autotune, fused_lif_gemm, lif_step, quant_matmul,
+                                   ref, spike_gemm, wkv_chunk)
         from repro.launch import serve as lm_serve
         from repro.models import common as lm_common
         from repro.models import model as lm_model
@@ -43,6 +43,7 @@ def jax_ref():
         from repro.obs import metrics as obs_metrics
         from repro.obs import timeline
         from repro.obs import trace as obs_trace
+        from repro.roofline import analysis as roofline
         from repro.runtime import fault_tolerance
         from repro.snn import data, export
     return types.SimpleNamespace(
@@ -57,7 +58,8 @@ def jax_ref():
         quant_matmul=quant_matmul, lm_serve=lm_serve, compiler=compiler,
         s2a=s2a, zero_skip=zero_skip, timeline=timeline, export=export,
         checkpoint=checkpoint, streaming=streaming, obs_metrics=obs_metrics,
-        obs_trace=obs_trace, obs_logs=obs_logs, fault_tolerance=fault_tolerance)
+        obs_trace=obs_trace, obs_logs=obs_logs, fault_tolerance=fault_tolerance,
+        autotune=autotune, roofline=roofline)
 
 
 @pytest.fixture

@@ -152,15 +152,16 @@ def test_deploy_target_validation():
     assert spidr.DeployTarget(n_cores=4).multicore
     with pytest.raises(ValueError, match="force_mode"):
         spidr.DeployTarget(n_cores=4, force_mode=3)
-    with pytest.raises(NotImplementedError, match="A8"):
-        spidr.DeployTarget(autotune=True)
+    assert spidr.DeployTarget(autotune=True).autotune
+    with pytest.raises(ValueError, match="autotune"):
+        spidr.DeployTarget(autotune=True, backend="torch")
     with pytest.raises(ValueError, match="t_block"):
         spidr.DeployTarget(t_block=0)
     assert spidr.DeployTarget(weight_bits=8).vmem_bits == 15
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--snn", "gesture", "--replicas", "2"], "A9"),
+    (["--snn", "gesture", "--jnp"], "--torch"),
     (["--arch", "qwen1.5-0.5b"], "A12"),
     ([], "A12"),
 ])
@@ -200,14 +201,14 @@ def test_cli_streaming_and_telemetry_flags_serve_on_cpu(fresh_obs, tmp_path, fla
              "--trace-out": ["--streaming", "--n-cores", "4",
                              "--trace-out", str(tmp_path / "t.json")],
              "--metrics-out": ["--metrics-out", str(tmp_path / "m.json")]}[flag]
-    worker = serve.serve_snn(serve.parse_args(_CLI + extra))
+    worker = serve.serve_snn(serve.parse_args(_CLI + extra)).workers[0]
     assert len(worker.done) == 3
     assert all(r.readout.shape == (11,) for r in worker.done)
     if flag == "--metrics-out":
         dump = json.loads((tmp_path / "m.json").read_text())
         assert dump["spidr_serve_batches_total"][0]["value"] == worker.batches == 2
         return
-    batch = serve.serve_snn(serve.parse_args(_CLI))
+    batch = serve.serve_snn(serve.parse_args(_CLI)).workers[0]
     for a, b in zip(sorted(worker.done, key=lambda r: r.rid), batch.done):
         assert_same(a.readout, b.readout)
         assert a.cycles > 0 and a.energy_uj > 0 and a.cursor == 20
@@ -229,7 +230,7 @@ def test_cli_streaming_and_telemetry_flags_serve_on_cpu(fresh_obs, tmp_path, fla
 def test_cli_serves_on_cpu():
     worker = serve.serve_snn(serve.parse_args(
         ["--snn", "gesture", "--device", "cpu", "--requests", "3",
-         "--capacity", "2", "--t-block", "2"]))
+         "--capacity", "2", "--t-block", "2"])).workers[0]
     assert len(worker.done) == 3 and worker.batches == 2
     assert all(r.readout.shape == (11,) for r in worker.done)
 

@@ -295,7 +295,7 @@ def test_contract_violations_raise_before_touching_state(jax_ref):
 
 
 def test_session_device_other_than_the_engines_names_a9(jax_ref):
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="open_stream.*A9"):
         StreamSessionManager(_engine(jax_ref), capacity=2, chunk_T=2,
                              device="meta")
     assert StreamSessionManager(_engine(jax_ref), 2, 2, device="cpu").device.type == "cpu"
