@@ -56,6 +56,23 @@ Phases, each printing JSON lines:
                 inputs against the plain float path on the card, layer by
                 layer as in phase 5, and free-running (equal spike counts,
                 the Vmem readout within atol = rtol = T * 1e-5)
+  6c. train    training (ROADMAP A10) at full width: gesture (64x64, T=20,
+                batch 8) trained by deploy-exact QAT on one fixed batch
+                for 12 steps (the loss must drop), exported, saved,
+                ``spidr.load``ed and verified with its float params on 1
+                and 4 cores (``VerifyReport.roundtrip`` exact), again with
+                TF32 switched on; ``precision_sweep`` at 4/6/8 bit, each
+                export round-tripping exactly; ``python -m
+                repro_torch.launch.train --snn gesture --steps 3 --n-cores 4``
+                in a child process; optical flow (288x384, T=10, batch 2)
+                for 3 QAT steps, its export round-tripping exactly at
+                ``t_block`` 1 (B1) and 5 (B2); one legacy ``mode="train"``
+                step on B3 under autograd, whose input, weight and Vmem
+                gradients are then held layer by layer against the plain
+                path's (within 1e-4 of the largest; a spike flip only
+                within 1e-5 of the threshold).  Each run prints its host
+                ms per step, peak memory and launches (QAT training makes
+                none: it runs on no kernel), each exactly as predicted
   7. lm kernels the LM stack's kernels against their plain versions on the
                 card: the RWKV6 wkv (B7) at H=64, N=64, chunk 32, S in
                 {32, 64, 512}, B in {1, 4}, rtol 2e-4 / atol 2e-5 on y and
@@ -82,7 +99,7 @@ Phases, each printing JSON lines:
                 the plain route's top-2 logit gap is within twice the two
                 routes' largest bfloat16 logit difference); in float32
                 compute, the two routes' logits within 1e-3 of the largest
- 10. a ``kernels`` line: launches on phases 3-6 and 8, max error, kernel /
+ 10. a ``kernels`` line: launches on phases 3-6, 6c and 8, max error, kernel /
      plain / bound / library times per kernel
 
 then the card's name and power limit (nvidia-smi) and, last, the line
@@ -93,6 +110,7 @@ without that line.  Weights are random from a fixed seed.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -240,6 +258,11 @@ def main() -> int:
     launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
     check_autotune(torch, dev, tuned_runs)
     del tuned_runs
+    kernels.reset_launches()
+    train_runs = phase_train(torch, dev, kernels, card)
+    launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
+    check_train(torch, dev, train_runs)
+    del train_runs
     results.update(phase_lm_kernels(torch, dev))
     lm = lm_model(torch, dev)
     kernels.reset_launches()
@@ -247,7 +270,7 @@ def main() -> int:
     launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
     emit({"phase": "launches",
           "paths": "gesture + flow + streaming + quickstart + optical_flow walk + "
-                   "fleet + autotune + lm",
+                   "fleet + autotune + train + lm",
           "launches": launches})
     check_lm(torch, dev, lm)
     for name in KERNEL_INFO:
@@ -1869,6 +1892,322 @@ def check_autotune(torch, dev, tuned_runs) -> None:
               "roofline_bound_us": roof["bound_us"],
               "event_ms_over_bound": tuned_ms * 1e3 / roof["bound_us"]})
         del plain, untuned
+
+
+# ---------------------------------------------------------------------------
+# 5c. training: deploy-exact QAT, export, deploy, the round trip (A10)
+# ---------------------------------------------------------------------------
+TRAIN_STEPS = 12            # gesture QAT steps on one fixed batch
+FLOW_TRAIN = {"batch": 2, "steps": 3}
+SWEEP_BITS, SWEEP_STEPS = (4, 6, 8), 2
+VERIFY_BATCH = 2
+# B1/B2/B3 launches each run must make (weight layers x timesteps or slabs
+# per engine run; verify on a plan also runs the single-core engine).
+GESTURE_LAYERS, FLOW_LAYERS = 6, 8
+
+
+def _launch_delta(kernels, before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in kernels.LAUNCHES.items()
+            if n != before.get(k, 0)}
+
+
+def _train_steps(torch, dev, state, batch, spec, cfg, steps: int) -> dict:
+    """``steps`` train_steps on one batch: losses, synchronized host ms per
+    step, peak memory (and what was allocated before the first step)."""
+    from repro_torch.snn.train import train_step
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    allocated = torch.cuda.memory_allocated(dev)
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, spec, cfg)
+        losses.append(float(m["loss"]))  # synchronizes
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"state": state, "losses": losses, "ms_per_step": ms,
+            "memory_allocated_before": allocated,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+
+
+def _roundtrip(torch, dev, kernels, exported, params, spec, events, **target) -> dict:
+    """``CompiledSNN.verify(params=...)`` of an exported net: the report and
+    the run's launches."""
+    from repro_torch import spidr
+
+    compiled = spidr.compile(exported, params, spidr.DeployTarget(
+        weight_bits=exported.weight_bits, **target), spec=spec, device=dev)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    report = compiled.verify(events)
+    torch.cuda.synchronize(dev)
+    rt = report.roundtrip
+    return {**target, "weight_bits": exported.weight_bits, "exact": report.exact,
+            "roundtrip_exact": rt is not None and rt.exact,
+            "readout_mismatch": None if rt is None else rt.readout_mismatch,
+            "spike_mismatch": None if rt is None else rt.spike_mismatch,
+            "seconds": time.perf_counter() - t0,
+            "launches": _launch_delta(kernels, before)}
+
+
+def phase_train(torch, dev, kernels, card: str) -> dict:
+    """Train -> export -> deploy at full width (ROADMAP A10).
+
+    Gesture (64x64, T=20, batch 8): deploy-exact QAT on one fixed batch;
+    the trained net exported, saved, ``spidr.load``ed and verified with its
+    float params on 1 and 4 cores; ``precision_sweep`` at 4/6/8 bit, each
+    export verified; ``launch.train --snn gesture`` in a child process;
+    the QAT round trip with TF32 switched on.  Optical flow (288x384,
+    T=10, batch 2): QAT steps, then the round trip at ``t_block`` 1 (B1)
+    and 5 (B2).  One legacy ``mode="train"`` step through B3 under
+    autograd.  Each run's launches are counted here; the B3 gradients are
+    held against the plain path in ``check_train``."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import spidr
+    from repro_torch.configs import spidr_gesture, spidr_optflow
+    from repro_torch.core.network import run_snn
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.snn import export
+    from repro_torch.snn.train import (TrainConfig, init_train_state, make_batch_fn,
+                                       precision_sweep)
+
+    out = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="spidr_train_")
+    try:
+        # Gesture: QAT on a fixed batch, then export -> save -> load -> verify.
+        spec = spidr_gesture.CONFIG
+        cfg = TrainConfig(steps=TRAIN_STEPS)
+        state = init_train_state(torch.Generator(device=dev).manual_seed(0), spec, cfg)
+        batch = make_batch_fn(spec, cfg, device=dev)(torch.Generator().manual_seed(1))
+        before = dict(kernels.LAUNCHES)
+        run = _train_steps(torch, dev, state, batch, spec, cfg, TRAIN_STEPS)
+        run["launches"] = _launch_delta(kernels, before)
+        run.update(hw=list(spec.input_hw), T=spec.timesteps, batch=cfg.batch)
+        params = run.pop("state").params
+        exported = export.export_network(params, spec, QuantSpec(cfg.weight_bits))
+        spidr.compile(exported, spec, spidr.DeployTarget(), device=dev).save(
+            os.path.join(tmp, "gesture"), step=TRAIN_STEPS)
+        events, _ = make_batch_fn(spec, cfg, batch=VERIFY_BATCH, device=dev)(
+            torch.Generator().manual_seed(2))
+        run["roundtrips"] = []
+        for n_cores in (1, 4):
+            loaded = spidr.load(os.path.join(tmp, "gesture"),
+                                target=spidr.DeployTarget(n_cores=n_cores), device=dev)
+            check(loaded.spec == spec, "train: the loaded spec is not the trained one")
+            run["roundtrips"].append(_roundtrip(
+                torch, dev, kernels, loaded.exported, params, spec, events,
+                n_cores=n_cores))
+        # TF32 switched on: the QAT product must not notice.
+        with torch.no_grad():
+            qat_off = run_snn(params, events, spec, QuantSpec(4), mode="qat",
+                              record_spikes=True)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                qat_on = run_snn(params, events, spec, QuantSpec(4), mode="qat",
+                                 record_spikes=True)
+            tf32 = _roundtrip(torch, dev, kernels, exported, params, spec, events)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        tf32["qat_forward_equal_to_tf32_off"] = all(
+            torch.equal(a, b) for a, b in zip(qat_on, qat_off))
+        run["tf32_on"] = tf32
+        out["gesture"] = run
+
+        # precision_sweep at full width, a few steps each.
+        scfg = TrainConfig(steps=SWEEP_STEPS, warmup=1, eval_batch=8, eval_batches=1)
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        sweep = precision_sweep("gesture", bits=SWEEP_BITS, cfg=scfg,
+                                generator=torch.Generator().manual_seed(3), device=dev)
+        torch.cuda.synchronize(dev)
+        out["sweep"] = {"seconds": time.perf_counter() - t0,
+                        "launches": _launch_delta(kernels, before), "bits": {}}
+        for b, r in sweep.items():
+            out["sweep"]["bits"][b] = {
+                "loss": r["history"]["loss"], "accuracy": r["metric"],
+                **_roundtrip(torch, dev, kernels, r["exported"], r["state"].params,
+                             spec, events)}
+        del sweep
+
+        # The train CLI in a child process: full width, 3 steps, 4 cores.
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--snn", "gesture",
+             "--steps", "3", "--n-cores", "4", "--ckpt-dir", os.path.join(tmp, "cli")],
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": SRC})
+        lines = proc.stdout.strip().splitlines()
+        out["cli"] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                      "result": json.loads(lines[-1]) if proc.returncode == 0 and lines
+                      else proc.stderr[-2000:]}
+
+        # Optical flow at the full frame: QAT steps, the round trip on B1 and B2.
+        fspec = spidr_optflow.CONFIG
+        fcfg = TrainConfig(steps=FLOW_TRAIN["steps"], batch=FLOW_TRAIN["batch"])
+        fstate = init_train_state(torch.Generator(device=dev).manual_seed(4), fspec, fcfg)
+        fbatch = make_batch_fn(fspec, fcfg, device=dev)(torch.Generator().manual_seed(5))
+        before = dict(kernels.LAUNCHES)
+        frun = _train_steps(torch, dev, fstate, fbatch, fspec, fcfg, FLOW_TRAIN["steps"])
+        frun["launches"] = _launch_delta(kernels, before)
+        frun.update(hw=list(fspec.input_hw), T=fspec.timesteps, batch=fcfg.batch)
+        fparams = frun.pop("state").params
+        del fstate
+        fexported = export.export_network(fparams, fspec, QuantSpec(fcfg.weight_bits))
+        frun["roundtrips"] = [
+            _roundtrip(torch, dev, kernels, fexported, fparams, fspec, fbatch[0],
+                       t_block=t_block) for t_block in (1, 5)]
+        out["flow"] = frun
+        del fbatch
+
+        # One legacy mode="train" step: every layer-timestep on B3 under autograd.
+        lcfg = dataclasses.replace(cfg, mode="train")
+        lstate = init_train_state(torch.Generator(device=dev).manual_seed(6), spec, lcfg)
+        before = dict(kernels.LAUNCHES)
+        lrun = _train_steps(torch, dev, lstate, batch, spec, lcfg, 1)
+        lrun["launches"] = _launch_delta(kernels, before)
+        lrun.update(hw=list(spec.input_hw), T=spec.timesteps, batch=lcfg.batch)
+        lrun.pop("state")
+        out["legacy"] = {**lrun, "params": lstate.params, "events": batch[0], "spec": spec}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()  # the flow steps' ~33 GB of saved tensors
+    return out
+
+
+def check_train(torch, dev, runs) -> None:
+    """Every check of the train phase, after its launches were read: the
+    losses, each round trip exact with the predicted launches, the CLI, the
+    TF32 run; then B3's autograd against the plain path layer by layer."""
+    card = runs["card"]
+    g = runs["gesture"]
+    check(all(math.isfinite(x) for x in g["losses"]) and g["losses"][-1] < g["losses"][0],
+          f"train gesture: the loss did not drop on a fixed batch {g['losses']}")
+    check(not g["launches"], f"train gesture: QAT training launched {g['launches']}")
+    b1 = GESTURE_LAYERS * g["T"]
+    for rt, want in zip(g["roundtrips"], (b1, 2 * b1)):
+        check(rt["exact"] and rt["roundtrip_exact"],
+              f"train gesture {rt['n_cores']} core(s): round trip {rt}")
+        check(rt["launches"] == {"fused_lif_gemm_int": want},
+              f"train gesture {rt['n_cores']} core(s): launches {rt['launches']}")
+    tf = g["tf32_on"]
+    check(tf["exact"] and tf["qat_forward_equal_to_tf32_off"]
+          and tf["launches"] == {"fused_lif_gemm_int": b1},
+          f"train gesture with TF32 on: {tf}")
+    emit({"phase": "train_gesture", "card": card, **g})
+    s = runs["sweep"]
+    for b, r in s["bits"].items():
+        check(r["exact"] and r["roundtrip_exact"] and all(
+            math.isfinite(x) for x in r["loss"]),
+              f"train sweep {b}-bit: {r}")
+        check(r["launches"] == {"fused_lif_gemm_int": b1},
+              f"train sweep {b}-bit: launches {r['launches']}")
+    check(not s["launches"], f"train sweep: training launched {s['launches']}")
+    emit({"phase": "train_sweep", "card": card, **s})
+    c = runs["cli"]
+    check(c["rc"] == 0 and isinstance(c["result"], dict),
+          f"train CLI exited {c['rc']}: {c['result']}")
+    check([r["n_cores"] for r in c["result"]["roundtrips"]] == [1, 4]
+          and all(r["exact"] for r in c["result"]["roundtrips"])
+          and c["result"]["launches"] == {"fused_lif_gemm_int": 3 * b1},
+          f"train CLI: {c['result']}")
+    emit({"phase": "train_cli", "card": card, **c})
+    f = runs["flow"]
+    check(all(math.isfinite(x) for x in f["losses"]),
+          f"train flow: loss {f['losses']}")
+    check(not f["launches"], f"train flow: QAT training launched {f['launches']}")
+    want = ({"fused_lif_gemm_int": FLOW_LAYERS * f["T"]},
+            {"fused_lif_gemm_int_tblk": FLOW_LAYERS * -(-f["T"] // 5)})
+    for rt, w in zip(f["roundtrips"], want):
+        check(rt["exact"] and rt["roundtrip_exact"],
+              f"train flow t_block={rt['t_block']}: round trip {rt}")
+        check(rt["launches"] == w,
+              f"train flow t_block={rt['t_block']}: launches {rt['launches']}")
+    emit({"phase": "train_flow", "card": card, **f})
+    leg = runs["legacy"]
+    check(leg["launches"] == {"fused_lif_gemm": b1} and math.isfinite(leg["losses"][0]),
+          f"train legacy: {leg['losses']} with launches {leg['launches']}")
+    t0 = time.perf_counter()
+    lock = _lockstep_backward(torch, leg["params"], leg["events"], leg["spec"])
+    emit({"phase": "train_legacy", "card": card,
+          **{k: leg[k] for k in ("hw", "T", "batch", "losses", "ms_per_step",
+                                 "memory_allocated_before", "max_memory_allocated",
+                                 "launches")},
+          "b3_backward_layer_by_layer": lock,
+          "check_seconds": round(time.perf_counter() - t0, 3)})
+    check(lock["ok"], f"train legacy: B3 autograd against the plain path {lock}")
+
+
+#: B3 autograd's gradients against the plain composition's, per
+#: layer-timestep: max |diff| <= GRAD_TOL * max |plain gradient| (float32
+#: sums in another order; the backward's recomputed Vmem in float64).
+GRAD_TOL = 1e-4
+
+
+def _lockstep_backward(torch, params, events, spec) -> dict:
+    """``mode="train"`` layer by layer: at every layer-timestep B3 under
+    autograd (``_FusedLifGemmTrain``) and the plain ``matmul`` +
+    ``neuron_step`` take the same input and Vmem and the same random
+    cotangents, zeroed where a spike flipped (which must lie within 1e-5 of
+    the threshold); their input, weight and Vmem gradients are held to
+    ``GRAD_TOL``, and the walk goes on with the plain one."""
+    from repro_torch.core import layers as L
+    from repro_torch.core.network import _init_state
+    from repro_torch.core.neuron import neuron_step
+    from repro_torch.core.quant import ste_quantize
+
+    gen = torch.Generator(device=events.device).manual_seed(7)
+    state = _init_state(spec, events.shape[1], events.device)
+    tot = {"layer_steps": 0, "spikes_flipped": 0, "flipped_off_threshold": 0,
+           "max_rel_grad_err": 0.0, "ok": True}
+    for x_t in events.to(torch.float32):
+        act, new = x_t, []
+        for i, l in enumerate(spec.layers):
+            if l.kind in ("pool", "adaptive_pool"):
+                kk = 2 if l.kind == "pool" else act.shape[1] // l.target_hw
+                act = L.maxpool2d(act, kk, kk)
+                new.append(None)
+                continue
+            if l.kind == "conv":
+                p = l.conv
+                cols = L.im2col(act, p.kh, p.kw, p.stride, p.padding)
+                cols = cols.reshape(-1, params[i].shape[0])
+            else:
+                p, cols = l.fc, act.reshape(act.shape[0], -1)
+            n = p.neuron
+            wq = ste_quantize(params[i], 4)
+            v0 = state[i].reshape(cols.shape[0], -1)
+            outs = []
+            for fn in (lambda c, w, v: L._FusedLifGemmTrain.apply(c, w, v, n),
+                       lambda c, w, v: neuron_step(v, c @ w, n)):
+                leaves = [x.detach().clone().requires_grad_(True) for x in (cols, wq, v0)]
+                outs.append((leaves, fn(*leaves)))
+            (_, (vk, sk)), (_, (vp, sp)) = outs
+            leak = n.leak if n.model == "lif" else 1.0
+            flipped = sk != sp
+            v_pre = v0 * leak + cols @ wq
+            off = int(((v_pre - n.threshold).abs() > 1e-5)[flipped].sum())
+            keep = (~flipped).to(torch.float32)
+            gv, gs = (torch.randn(vp.shape, generator=gen, device=vp.device) * keep
+                      for _ in range(2))
+            for leaves, (vv, ss) in outs:
+                torch.autograd.backward([vv, ss], [gv, gs])
+            rel = max(float((a.grad - b.grad).abs().max())
+                      / max(float(b.grad.abs().max()), 1e-30)
+                      for a, b in zip(outs[0][0], outs[1][0]))
+            tot["layer_steps"] += 1
+            tot["spikes_flipped"] += int(flipped.sum())
+            tot["flipped_off_threshold"] += off
+            tot["max_rel_grad_err"] = max(tot["max_rel_grad_err"], rel)
+            tot["ok"] = tot["ok"] and off == 0 and rel <= GRAD_TOL
+            new.append(vp.detach().reshape(state[i].shape))
+            act = sp.detach().reshape(state[i].shape)
+        state = new
+    return tot
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,11 @@ Converted to numpy, that list becomes the same list of torch tensors here;
 ``engine.build_engine`` then quantizes them itself and reproduces the JAX
 engine's ``w_q`` and ``thr_int`` bit for bit.
 
+``repro.snn.train.TrainState`` holds such a list, AdamW's ``{"mu", "nu"}``
+lists of the same structure and the step; :func:`train_state_from_jax`
+turns it into the port's ``TrainState``, so both packages can step from
+the same state.
+
 ``repro.models.model.init_params`` returns the LM's parameter pytree:
 nested dicts whose RWKV6 leaves sit in a ``RWKV6Params`` NamedTuple, each
 leaf layer-stacked.  :func:`lm_params_from_jax` turns the same tree, with
@@ -20,7 +25,7 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["lm_params_from_jax", "params_from_jax"]
+__all__ = ["lm_params_from_jax", "params_from_jax", "train_state_from_jax"]
 
 
 def params_from_jax(np_params, device=None) -> list:
@@ -29,6 +34,21 @@ def params_from_jax(np_params, device=None) -> list:
     return [None if p is None
             else torch.tensor(np.array(p, np.float32), device=dev)
             for p in np_params]
+
+
+def train_state_from_jax(state, device=None):
+    """The reference's ``TrainState`` (``params``, ``opt_state`` with
+    ``mu``/``nu`` lists, ``step``; leaves anything ``numpy.asarray`` takes)
+    -> the port's ``snn.train.TrainState`` with float32 tensors on
+    ``device``."""
+    from .snn.train import TrainState
+
+    opt = state.opt_state
+    return TrainState(
+        params=params_from_jax(state.params, device),
+        opt_state={"mu": params_from_jax(opt["mu"], device),
+                   "nu": params_from_jax(opt["nu"], device)},
+        step=int(state.step))
 
 
 def lm_params_from_jax(np_tree, device=None):

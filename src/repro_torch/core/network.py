@@ -12,13 +12,15 @@ as in ``repro.core.network``.  Parameters are a list with one float32
 ``(fan_in, c_out)`` tensor per weight layer and ``None`` per pool layer,
 the same structure as the reference's parameter list.
 
-``run_snn(mode="train")`` is the reference's float forward (fake-quantized
-weights, float Vmem): on the card every weight layer-timestep is one
-launch of the fused float kernel, on the CPU the plain composition.  The
-integer datapath is the engine (``engine/inference.py``).  The reference's
-``run_snn(mode="int")`` cannot run (its ``_forward_t`` never passes the
-``w_scale`` that ``spiking_conv`` asserts), so it is not ported;
-``mode="qat"`` comes with training (ROADMAP A10).
+``run_snn`` runs the reference's two training contracts, both
+differentiable: ``mode="train"`` (per-tensor fake-quant, float Vmem: on
+the card every weight layer-timestep is one launch of the fused float
+kernel, on the CPU the plain composition) and ``mode="qat"`` (the
+deploy-exact forward, whose spike trains equal the exported integer
+engine's bit for bit).  The integer datapath is the engine
+(``engine/inference.py``).  The reference's ``run_snn(mode="int")`` cannot
+run (its ``_forward_t`` never passes the ``w_scale`` that ``spiking_conv``
+asserts, ROADMAP C2), so it is not ported.
 """
 from __future__ import annotations
 
@@ -218,20 +220,21 @@ def run_snn(params, inputs: torch.Tensor, spec: SNNSpec, qspec: QuantSpec,
             matmul: Optional[Callable] = None):
     """Run all timesteps of ``inputs`` (``(T, B, H, W, C)`` binary frames).
 
-    Returns ``(readout, counts)``: the readout is ``(B, n_classes)`` summed
-    output spikes ("rate") or the last layer's ``(B, H, W, C)`` Vmem
-    ("vmem"), float32; ``counts`` is ``(T, n_weight_layers)`` float32
-    output spikes per layer under ``record_spikes``, else ``(T, 1)`` zeros,
-    as in the reference.  Runs where ``inputs`` lies; the parameters must
+    ``mode`` is ``"train"`` (float QAT, per-tensor STE) or ``"qat"``
+    (deploy-exact QAT).  Returns ``(readout, counts)``: the readout is
+    ``(B, n_classes)`` summed output spikes ("rate") or the last layer's
+    ``(B, H, W, C)`` Vmem ("vmem"), float32; ``counts`` is
+    ``(T, n_weight_layers)`` float32 output spikes per layer under
+    ``record_spikes``, else ``(T, 1)`` zeros, as in the reference.  Runs where ``inputs`` lies; the parameters must
     lie there too.  ``matmul`` replaces the fused kernel by
-    ``matmul`` + ``neuron_step`` on any device (the plain path).
+    ``matmul`` + ``neuron_step`` on any device (the plain path), or, under
+    ``"qat"``, the exact product.
     """
-    if mode != "train":
+    if mode not in ("train", "qat"):
         raise NotImplementedError(
-            f"run_snn(mode={mode!r}) is not ported: 'qat' comes with training "
-            "(ROADMAP A10), and the reference's 'int' mode cannot run (its "
-            "_forward_t never passes w_scale); the integer datapath is the "
-            "engine (spidr.compile)")
+            f"run_snn(mode={mode!r}) is not ported: the reference's 'int' mode "
+            "cannot run (its _forward_t never passes w_scale, ROADMAP C2); the "
+            "integer datapath is the engine (spidr.compile)")
     inputs = torch.as_tensor(inputs)
     batch, dev = inputs.shape[1], inputs.device
     state = _init_state(spec, batch, dev)

@@ -6,12 +6,13 @@ two's-complement integers; membrane potentials are signed integers twice
 as wide minus one bit.  Integer arithmetic in torch is bit-exact with the
 digital datapath, and with ``repro.core.quant``.
 
-``ste_quantize`` is the forward of the reference's per-tensor
-straight-through fake-quant (the training-mode forward's weights).  The
+QAT: ``ste_quantize`` (per tensor, the training-mode weights) and
+``ste_quantize_po2_scaled``/``ste_quantize_po2`` (per-channel power-of-two
+scales, the deploy-exact weights) fake-quantize in the forward and pass
+the gradient straight through, as the reference's ``custom_vjp``s.  The
 power-of-two quantizers ``po2_scale``/``po2_quantize`` and
-``requantize_threshold`` are the exporter's (``snn.export``); their
-straight-through versions and the rest of QAT come with the training
-slice of the port (ROADMAP A10).
+``requantize_threshold`` are also the exporter's (``snn.export``), so the
+integers it emits are by definition the ones training saw.
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ __all__ = [
     "sat_add",
     "saturate",
     "ste_quantize",
+    "ste_quantize_po2",
+    "ste_quantize_po2_scaled",
 ]
 
 
@@ -139,13 +142,20 @@ def po2_scale(w: torch.Tensor, spec: QuantSpec, axis=None) -> torch.Tensor:
     answer; on the CPU torch's float32 ``log`` and ``exp`` give the same
     exponent for every ratio within 64 ulps of ``2**k``, ``-26 <= k <= 34``,
     and the same scale for ``-125 <= k <= 31``.
+
+    The ``log`` and ``exp`` always run on the CPU (only the per-channel
+    ``amax`` is computed where ``w`` lies): CUDA's float32 ``exp`` can miss
+    the power of two by an ulp, and then a QAT forward on the card would
+    quantize on another grid than the exporter, which runs on the host.
+    The result is returned on ``w``'s device.
     """
     w = torch.as_tensor(w).to(torch.float32)
     amax = w.abs().amax() if axis is None else w.abs().amax(dim=axis, keepdim=True)
-    w_max = torch.full_like(amax, float(spec.w_max))
-    ratio = torch.where(amax == 0, w_max, amax) / w_max
+    amax_host = amax.cpu()
+    w_max = torch.full_like(amax_host, float(spec.w_max))
+    ratio = torch.where(amax_host == 0, w_max, amax_host) / w_max
     k = torch.ceil(torch.log(ratio) / torch.log(torch.full_like(ratio, 2.0)))
-    return torch.exp(torch.full_like(k, math.log(2.0)) * k)
+    return torch.exp(torch.full_like(k, math.log(2.0)) * k).to(amax.device)
 
 
 def po2_quantize(w: torch.Tensor, spec: QuantSpec, axis=None):
@@ -175,6 +185,48 @@ def requantize_threshold(threshold, scale: torch.Tensor, spec: QuantSpec):
     return t.to(torch.int32), t * scale
 
 
+# --------------------------------------------------------------------------
+# QAT: straight-through estimators.  Forward = fake-quantized weights,
+# backward = identity into ``w``.
+# --------------------------------------------------------------------------
+class _SteQuantize(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, weight_bits):
+        return dequantize(*quantize(w, QuantSpec(weight_bits)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SteQuantizePo2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, weight_bits, axis):
+        q, scale = po2_quantize(w, QuantSpec(weight_bits), axis)
+        ctx.mark_non_differentiable(scale)
+        return dequantize(q, scale), scale
+
+    @staticmethod
+    def backward(ctx, g, _g_scale):
+        return g, None, None
+
+
 def ste_quantize(w: torch.Tensor, weight_bits: int) -> torch.Tensor:
-    """Per-tensor fake-quant forward: ``dequantize(*quantize(w))``."""
-    return dequantize(*quantize(w, QuantSpec(weight_bits)))
+    """Per-tensor fake-quant ``dequantize(*quantize(w))``; identity gradient."""
+    return _SteQuantize.apply(w, weight_bits)
+
+
+def ste_quantize_po2_scaled(w: torch.Tensor, weight_bits: int, axis=0):
+    """Deploy-exact fake-quant: per-channel power-of-two scales, STE grad.
+
+    Returns ``(q * scale, scale)``: the exact float image of the integers
+    the exporter emits, and the scale it used (the saturation bounds and
+    the threshold requantization need it).  The gradient into ``w`` is the
+    identity; the scale output carries none.
+    """
+    return _SteQuantizePo2.apply(w, weight_bits, axis)
+
+
+def ste_quantize_po2(w: torch.Tensor, weight_bits: int, axis=0) -> torch.Tensor:
+    """``ste_quantize_po2_scaled`` without the scale output."""
+    return ste_quantize_po2_scaled(w, weight_bits, axis)[0]

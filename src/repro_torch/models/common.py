@@ -1,7 +1,7 @@
 """Shared model components: the RMS norm and the initializers.
 
-RoPE and the loss wait for the attention families and training (ROADMAP
-A12, A10).  The initializers draw from a ``torch.Generator`` and make their
+RoPE and the loss wait for the attention families and the LM train step
+(ROADMAP A12).  The initializers draw from a ``torch.Generator`` and make their
 tensors on its device, so the numbers differ from ``jax.random``'s; parity
 tests carry the reference's own parameters across with
 ``repro_torch.convert.lm_params_from_jax``.

@@ -6,7 +6,7 @@ The counterpart of ``repro.models.model`` for serving:
     token's logits and the populated decode cache;
   * ``make_decode_step(cfg)``: one token against the cache.
 
-The train step waits for ROADMAP A10/A12.  The reference's
+The train step waits for ROADMAP A12.  The reference's
 ``_compute_params`` is the identity with every flag off, as serving runs;
 instead of casting each weight to bfloat16 on every call as the reference
 does, :func:`serving_params` makes the casts once (the same elementwise

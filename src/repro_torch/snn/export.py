@@ -16,8 +16,9 @@ The train->deploy seam, as ``repro.snn.export``:
     reference's layout: a checkpoint written by either package loads in
     the other.
 
-``verify_roundtrip`` (the QAT training graph against the deployed engine)
-needs ``run_snn(mode="qat")``, which comes with training (ROADMAP A10).
+  * ``verify_roundtrip`` — the proof: the QAT training graph
+    (``run_snn(mode="qat")``) and the deployed engine give equal per-layer
+    spike counts at every timestep and equal readouts.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 from .. import resolve_device
 from ..checkpoint.checkpoint import CheckpointError, Checkpointer
 from ..compiler import compile_network
-from ..core.network import SNNSpec
+from ..core.network import SNNSpec, run_snn
 from ..core.quant import (
     PRECISION_PAIRS,
     QuantSpec,
@@ -44,11 +45,13 @@ from ..engine.inference import (
     EngineLayer,
     SNNEngine,
     compile_engine,
+    run_engine,
 )
 
 __all__ = [
     "ExportedLayer",
     "ExportedNetwork",
+    "RoundTrip",
     "deploy",
     "dequantize_readout",
     "export_network",
@@ -181,11 +184,52 @@ def dequantize_readout(exported: ExportedNetwork, spec: SNNSpec, readout):
         np.asarray(last.scale, np.float32), device=readout.device)
 
 
-def verify_roundtrip(*args, **kwargs):
-    """The QAT-graph round-trip proof is not ported yet (ROADMAP A10)."""
-    raise NotImplementedError(
-        "verify_roundtrip runs the QAT training graph (run_snn(mode='qat')), "
-        "which is not ported yet — see ROADMAP.md A10")
+# ---------------------------------------------------------------------------
+# The round-trip proof.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class RoundTrip:
+    """The QAT training graph against the deployed engine."""
+
+    exact: bool
+    readout_mismatch: float      # max |qat - dequantized engine readout|
+    spike_mismatch: int          # max |per-timestep per-layer spike counts|
+
+    def __bool__(self) -> bool:
+        return self.exact
+
+
+def verify_roundtrip(params, spec: SNNSpec, engine: SNNEngine, events,
+                     exported: Optional[ExportedNetwork] = None,
+                     engine_out=None) -> RoundTrip:
+    """Prove train->deploy bit-exactness on ``events``.
+
+    Runs the post-STE training graph (``run_snn(mode="qat")`` on the float
+    ``params``, without gradient) and the deployed integer ``engine`` on
+    the same ``(T, B, H, W, C)`` event streams, on the engine's device,
+    and compares the per-timestep per-layer output spike counts and the
+    readout (the engine's dequantized through the exported scales).  Exact
+    means equal, not close.  ``params`` may be tensors on any device or
+    arrays; ``engine_out`` takes a ``run_engine(engine, events)`` result
+    already computed.
+    """
+    exported = exported or export_network(params, spec, engine.cfg.qspec)
+    dev = engine.device
+    events = torch.as_tensor(events, device=dev)
+    params = [None if p is None else torch.as_tensor(
+        p.detach() if isinstance(p, torch.Tensor) else np.array(p, np.float32),
+        dtype=torch.float32, device=dev) for p in params]
+    with torch.no_grad():
+        qat_out, qat_counts = run_snn(params, events, spec, engine.cfg.qspec,
+                                      mode="qat", record_spikes=True)
+    eng = engine_out if engine_out is not None else run_engine(engine, events)
+    eng_out = dequantize_readout(exported, spec, eng.readout)
+    readout_mismatch = float((qat_out - eng_out).abs().max())
+    spike_mismatch = int((qat_counts.to(torch.int64)
+                          - eng.spike_counts.to(torch.int64)).abs().max())
+    return RoundTrip(exact=readout_mismatch == 0.0 and spike_mismatch == 0,
+                     readout_mismatch=readout_mismatch,
+                     spike_mismatch=spike_mismatch)
 
 
 # ---------------------------------------------------------------------------

@@ -29,8 +29,10 @@ bit-exact with single-core execution.  A :class:`CompiledSNN` offers
                              ``spidr.restore`` resumes bit-exactly in a
                              fresh process (this package's or the
                              reference's: either reads the other's)
-  ``verify(events)``         the engine against the python-loop reference
-                             and a plan against the single-core engine
+  ``verify(events, params)`` the engine against the python-loop reference,
+                             a plan against the single-core engine and,
+                             with float params, the exported integers
+                             against the QAT training graph
   ``roofline(batch)``        the analytic bound of a chunk on the H100
                              (``roofline.PerfModel``), per weight layer
   ``engine_on(device)``      the engine copied to another device, once per
@@ -39,8 +41,7 @@ bit-exact with single-core execution.  A :class:`CompiledSNN` offers
 ``DeployTarget(autotune=True)`` measures each weight layer's ``t_block`` on
 the deployment's device (``kernels.autotune``) and bakes the winner into
 the engine as ``EngineLayer.kcfg``; every candidate is bit-exact.  The
-static-analysis report (ROADMAP A11) and the QAT round trip of ``verify``
-(A10) belong to later slices of the port.
+static-analysis report (ROADMAP A11) belongs to a later slice of the port.
 """
 from __future__ import annotations
 
@@ -82,10 +83,12 @@ from ..obs import trace as obs_trace
 from ..snn.export import (
     ExportedLayer,
     ExportedNetwork,
+    RoundTrip,
     deploy,
     load_exported,
     read_export_meta,
     save_exported,
+    verify_roundtrip,
 )
 from .target import DeployTarget, _require_positive_int
 
@@ -177,14 +180,15 @@ class VerifyReport:
                            same integers.
     ``single_core_exact``  a compiled multi-core plan equals the
                            single-core engine (None on one core).
-    ``roundtrip``          the QAT training-graph parity of an exported
-                           network: None until ROADMAP A10 ports it.
+    ``roundtrip``          the QAT training graph against the deployed
+                           integers (``snn.export.RoundTrip``): None unless
+                           the deployment is exported and has float params.
     """
 
     exact: bool
     reference_exact: bool
     single_core_exact: Optional[bool] = None
-    roundtrip: Optional[object] = None
+    roundtrip: Optional[RoundTrip] = None
 
     def __bool__(self) -> bool:
         return self.exact
@@ -632,11 +636,12 @@ class CompiledSNN:
         """Check the deployment exactly (equal, not close).
 
         The engine against the python-loop reference on the same integers,
-        and a multi-core plan against the single-core engine.  ``events``
-        defaults to a synthetic DVS batch for the spec's head (gesture for a
-        rate readout, flow otherwise), drawn from ``seed``.  ``params`` is
-        accepted for the reference's signature; the QAT round trip it feeds
-        is ROADMAP A10, so ``roundtrip`` stays None.
+        a multi-core plan against the single-core engine, and, when float
+        params are at hand (``params`` here, or kept by :func:`compile`) for
+        an exported network, the deployed integers against the QAT training
+        graph (``snn.export.verify_roundtrip``); ``exact`` requires all.
+        ``events`` defaults to a synthetic DVS batch for the spec's head
+        (gesture for a rate readout, flow otherwise), drawn from ``seed``.
         """
         if events is None:
             from ..snn.data import make_flow_batch, make_gesture_batch
@@ -646,6 +651,7 @@ class CompiledSNN:
             events, _ = make(torch.Generator().manual_seed(seed), batch=batch,
                              timesteps=self.spec.timesteps,
                              hw=self.spec.input_hw, device=self.device)
+        events = torch.as_tensor(events, device=self.device)
         out = self.run(events)
 
         def same(a, b) -> bool:
@@ -656,9 +662,16 @@ class CompiledSNN:
         single_core_exact = None
         if self.schedule is not None:
             single_core_exact = same(out, run_engine(self._base_engine, events))
-        exact = reference_exact and single_core_exact is not False
+        roundtrip = None
+        params = params if params is not None else self.params
+        if self.exported is not None and params is not None:
+            roundtrip = verify_roundtrip(params, self.spec, self.engine, events,
+                                         self.exported, engine_out=out)
+        exact = (reference_exact and single_core_exact is not False
+                 and (roundtrip is None or roundtrip.exact))
         return VerifyReport(exact=exact, reference_exact=reference_exact,
-                            single_core_exact=single_core_exact)
+                            single_core_exact=single_core_exact,
+                            roundtrip=roundtrip)
 
 
 def _apply_schedule(base: SNNEngine, spec: SNNSpec, target: DeployTarget,

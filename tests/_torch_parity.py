@@ -39,13 +39,14 @@ def jax_ref():
         from repro.models import common as lm_common
         from repro.models import model as lm_model
         from repro.models import rwkv6, transformer
+        from repro.optim import optimizer
         from repro.obs import logs as obs_logs
         from repro.obs import metrics as obs_metrics
         from repro.obs import timeline
         from repro.obs import trace as obs_trace
         from repro.roofline import analysis as roofline
         from repro.runtime import fault_tolerance
-        from repro.snn import data, export
+        from repro.snn import data, export, train
     return types.SimpleNamespace(
         jax=jax, jnp=jnp, spidr=spidr, serving=serving, quant=quant,
         neuron=neuron, layers=layers, network=network, engine=inference,
@@ -59,7 +60,7 @@ def jax_ref():
         s2a=s2a, zero_skip=zero_skip, timeline=timeline, export=export,
         checkpoint=checkpoint, streaming=streaming, obs_metrics=obs_metrics,
         obs_trace=obs_trace, obs_logs=obs_logs, fault_tolerance=fault_tolerance,
-        autotune=autotune, roofline=roofline)
+        autotune=autotune, roofline=roofline, optimizer=optimizer, train=train)
 
 
 @pytest.fixture

@@ -310,9 +310,21 @@ def test_load_exported_validates_the_artifact(jax_ref, tmp_path):
     assert loaded.spec.input_hw == HW and loaded.spec.timesteps == T
 
 
-def test_verify_roundtrip_names_roadmap_a10():
-    with pytest.raises(NotImplementedError, match="A10"):
-        export.verify_roundtrip(None, None, None, None)
+def test_verify_roundtrip_names_roadmap_a10(jax_ref):
+    """ROADMAP A10's round trip, ported: the QAT training graph against an
+    exported 8-bit flow net on a 4-core plan, exact, as the reference's."""
+    spec, spec_j = _specs(jax_ref, "flow")
+    params, ev = _params(jax_ref, "flow"), _events()
+    ex = export.export_network(params, spec, QuantSpec(8))
+    rt = export.verify_roundtrip(params, spec,
+                                 export.deploy(ex, spec, n_cores=4, device="cpu"), ev, ex)
+    ex_j = jax_ref.export.export_network(params, spec_j, jax_ref.quant.QuantSpec(8))
+    rt_j = jax_ref.export.verify_roundtrip(
+        params, spec_j, jax_ref.export.deploy(ex_j, spec_j, n_cores=4),
+        jax_ref.jnp.asarray(ev), ex_j)
+    assert rt == export.RoundTrip(True, 0.0, 0)
+    assert (rt.exact, rt.readout_mismatch, rt.spike_mismatch) == \
+        (rt_j.exact, rt_j.readout_mismatch, rt_j.spike_mismatch)
 
 
 def test_compile_validates_its_inputs(jax_ref, tmp_path):

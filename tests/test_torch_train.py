@@ -147,7 +147,7 @@ def test_unported_modes_raise(fn):
             layers.spiking_conv(torch.zeros((1, 4, 4, 2)), torch.zeros((18, 2)),
                                 torch.zeros((1, 4, 4, 2)),
                                 layers.SpikingConvParams(3, 3), quant.QuantSpec(4),
-                                mode="qat")
+                                mode="int")
         else:
             layers.spiking_dense(torch.zeros((1, 4)), torch.zeros((4, 2)),
                                  torch.zeros((1, 2)), layers.SpikingDenseParams(),
