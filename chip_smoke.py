@@ -73,6 +73,31 @@ Phases, each printing JSON lines:
                 within 1e-5 of the threshold).  Each run prints its host
                 ms per step, peak memory and launches (QAT training makes
                 none: it runs on no kernel), each exactly as predicted
+ 6d. analysis  the deploy-time static analysis (ROADMAP A11) at full width:
+                ``python -m repro_torch.analysis --all --json`` in a child
+                (exit 0; every overflow certificate re-verifies, one with a
+                changed ``acc_hi`` does not); ``spidr.compile(...,
+                check="strict")`` of gesture (64x64, T=20, B=4) at 6/11 and
+                8/15 bits and optical flow (288x384, T=10, B=2) at 8/15, on
+                1 and 4 cores (the 4-core report with the schedule pass),
+                run at ``t_block`` 1 and 4 (flow 1 and 5) bit-exact with
+                backend="torch"; ``analysis.stress_fleet`` on full-width
+                gesture (2 replicas on the card, 6 streams at capacity 2,
+                sync against threaded, each threaded replica on its own
+                CUDA stream, no mismatch); ``core.cim_macro.accumulate`` on
+                CUDA tensors through B4 (M=16, K=128, N=48/W_b) at 4/7,
+                6/11 and 8/15 bits.  Then, after the launch counts are
+                read: the certificate's extremes (all-one spikes on
+                all-``w_min`` and all-``w_max`` weights, flow's layers at
+                8/15 bits and K=2000): B4's raw sums equal ``acc_lo`` /
+                ``acc_hi``, B1 and B2 equal their plain versions and
+                saturate to ``v_min`` / ``v_max``; ``accumulate`` on the
+                card equal to the CPU's, within range, and equal to
+                ``accumulate_sequential`` wherever no silicon-order partial
+                sum leaves the range.  Every ``spidr.compile`` of every
+                phase (and of the launch modules they drive) is held to
+                ``report().errors == ()``, and the analysis' warning is an
+                error in this process and its children
   7. lm kernels the LM stack's kernels against their plain versions on the
                 card: the RWKV6 wkv (B7) at H=64, N=64, chunk 32, S in
                 {32, 64, 512}, B in {1, 4}, rtol 2e-4 / atol 2e-5 on y and
@@ -98,8 +123,14 @@ Phases, each printing JSON lines:
                 a plain-route Server's (a difference is allowed only where
                 the plain route's top-2 logit gap is within twice the two
                 routes' largest bfloat16 logit difference); in float32
-                compute, the two routes' logits within 1e-3 of the largest
- 10. a ``kernels`` line: launches on phases 3-6, 6c and 8, max error, kernel /
+                compute, the two routes' logits within 1e-3 of the largest,
+                and the 8 requests served again in float32 through both
+                routes: a token may differ only where the plain route's
+                float32 top-2 gap is within 2e-3 of its largest logit (a
+                bound fixed before the run); the bfloat16 residual stream
+                of one served prefill, both routes side by side, layer by
+                layer
+ 10. a ``kernels`` line: launches on phases 3-6, 6c, 6d and 8, max error, kernel /
      plain / bound / library times per kernel
 
 then the card's name and power limit (nvidia-smi) and, last, the line
@@ -211,6 +242,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     if sys.argv[1:2] == ["--flow-restore-child"]:
         return _flow_restore_child(torch, sys.argv[2:])
+    _guard_compiles()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -263,6 +295,13 @@ def main() -> int:
     launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
     check_train(torch, dev, train_runs)
     del train_runs
+    kernels.reset_launches()
+    analysis_runs = phase_analysis(torch, dev)
+    phase_launches = {k: kernels.LAUNCHES[k] for k in
+                      ("fused_lif_gemm_int", "fused_lif_gemm_int_tblk", "spike_gemm")}
+    launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
+    check_analysis(torch, dev, analysis_runs, phase_launches)
+    del analysis_runs
     results.update(phase_lm_kernels(torch, dev))
     lm = lm_model(torch, dev)
     kernels.reset_launches()
@@ -270,7 +309,7 @@ def main() -> int:
     launches = {k: n + kernels.LAUNCHES[k] for k, n in launches.items()}
     emit({"phase": "launches",
           "paths": "gesture + flow + streaming + quickstart + optical_flow walk + "
-                   "fleet + autotune + train + lm",
+                   "fleet + autotune + train + analysis + lm",
           "launches": launches})
     check_lm(torch, dev, lm)
     for name in KERNEL_INFO:
@@ -2211,6 +2250,291 @@ def _lockstep_backward(torch, params, events, spec) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 6d. deploy-time static analysis at full width (ROADMAP A11)
+# ---------------------------------------------------------------------------
+# (net, weight_bits, t_blocks): each compiled with check="strict" on 1 and
+# 4 cores and run at every t_block, bit-exact with backend="torch".
+ANALYSIS_DEPLOYS = (("gesture", 6, (1, 4)), ("gesture", 8, (1, 4)),
+                    ("optical-flow", 8, (1, 5)))
+ANALYSIS_BATCH = {"gesture": 4, "optical-flow": 2}
+# stress_fleet: full-width gesture, both replicas on the one card.
+STRESS = {"n_streams": 6, "n_replicas": 2, "capacity": 2, "seed": 3}
+STRESS_TARGET = {"chunk_T": 4, "t_block": 4}
+# The certificate's extremes: flow's weight layers at 8/15 bits, and B2's
+# tile loop at a fan-in no paper layer has (facts derived at that fan-in).
+EXTREME_BITS, EXTREME_M, EXTREME_T, EXTREME_WIDE = 8, 4096, 5, (2000, 32)
+# cim_macro.accumulate on B4: one IFspad (128 x 16) per precision and
+# spike density, weights over the precision's whole range.
+MACRO_BITS, MACRO_DENSITIES, MACRO_SEED = (4, 6, 8), (0.05, 0.3, 1.0), 5
+COMPILES = {"checked": 0}
+
+
+def _guard_compiles() -> None:
+    """Hold every deployment this script makes to its static analysis.
+
+    ``spidr.compile``, which the phases and the launch modules they drive
+    call, is wrapped: each compile's ``report().errors`` must be empty
+    (counted in ``COMPILES``).  The analysis' own warning (``check="warn"``,
+    the default, as under ``spidr.load``) is an error here and in every
+    child process."""
+    import warnings
+
+    from repro_torch import spidr
+
+    compile_ = spidr.compile
+
+    def compile(*args, **kwargs):
+        compiled = compile_(*args, **kwargs)
+        errors = compiled.report().errors
+        check(not errors, f"spidr.compile: static analysis found {errors}")
+        COMPILES["checked"] += 1
+        return compiled
+
+    spidr.compile = compile
+    warnings.filterwarnings("error", message="static analysis found",
+                            category=RuntimeWarning)
+    os.environ["PYTHONWARNINGS"] = "error:static analysis found:RuntimeWarning"
+
+
+def _analysis_inputs(torch, dev, net):
+    from repro_torch.configs import spidr_gesture, spidr_optflow
+    from repro_torch.core.network import init_params
+    from repro_torch.snn.data import make_flow_batch, make_gesture_batch
+
+    spec = spidr_gesture.CONFIG if net == "gesture" else spidr_optflow.CONFIG
+    make = make_gesture_batch if net == "gesture" else make_flow_batch
+    params = init_params(torch.Generator().manual_seed(0), spec)
+    events, _ = make(torch.Generator().manual_seed(1), batch=ANALYSIS_BATCH[net],
+                     timesteps=spec.timesteps, hw=spec.input_hw, device=dev)
+    return spec, params, events
+
+
+def _analysis_cli() -> dict:
+    """``python -m repro_torch.analysis --all --json`` in a child: exit 0,
+    12 configurations and both lints; every overflow certificate
+    re-verifies, one with a changed ``acc_hi`` does not."""
+    import tempfile
+
+    from repro_torch.analysis import check_certificate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "analysis.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--all", "--json", path],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": SRC})
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"analysis CLI exited {proc.returncode}: "
+              f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+        with open(path, encoding="utf-8") as f:
+            report = json.load(f)
+    certs = {k: c for k, c in report["certificates"].items() if c["pass"] == "overflow"}
+    check(report["ok"] and len(certs) == 12
+          and set(report["passes"]) == {"overflow", "schedule", "purity", "concurrency"},
+          f"analysis CLI: ok={report['ok']}, {len(certs)} overflow certificates, "
+          f"passes {report['passes']}")
+    failing = {k: p for k, c in certs.items() if (p := check_certificate(c))}
+    check(not failing, f"analysis CLI: certificates fail re-verification {failing}")
+    name, cert = sorted(certs.items())[-1]
+    tampered = json.loads(json.dumps(cert))
+    tampered["layers"][1]["acc_hi"] += 1
+    problems = check_certificate(tampered)
+    check(bool(problems), f"analysis CLI: {name} with acc_hi changed re-verifies")
+    return {"rc": proc.returncode, "seconds": seconds, "configs": len(certs),
+            "passes": sorted(report["passes"]), "violations": len(report["violations"]),
+            "tampered": name, "tampered_problems": problems}
+
+
+def _macro_blocks(bits: int):
+    """Seeded (spikes (128, 16), weights (128, 48/W_b), vmem (16, 48/W_b))
+    per density, as numpy."""
+    import numpy as np
+
+    from repro_torch.core.quant import QuantSpec
+
+    q = QuantSpec(bits)
+    rng = np.random.default_rng(MACRO_SEED + bits)
+    for density in MACRO_DENSITIES:
+        spikes = (rng.random((128, 16)) < density).astype(np.int8)
+        w = rng.integers(q.w_min, q.w_max + 1, (128, q.neurons_per_row)).astype(np.int8)
+        v0 = rng.integers(q.v_min // 2, q.v_max // 2 + 1,
+                          (16, q.neurons_per_row)).astype(np.int32)
+        yield density, spikes, w, v0
+
+
+def phase_analysis(torch, dev) -> dict:
+    """The deploy-time analysis on the card (ROADMAP A11): the CLI in a
+    child; strict deployments at full width (gesture 6/11 and 8/15 bits,
+    flow 8/15) on 1 and 4 cores, at two ``t_block`` each, bit-exact with
+    ``backend="torch"``; ``stress_fleet`` (sync against threaded, each
+    replica on its own CUDA stream); ``cim_macro.accumulate`` on CUDA
+    tensors (B4).  The certificate's extremes on B1, B2 and B4 and the
+    comparisons with the plain versions come after the launch counts are
+    read (``check_analysis``)."""
+    from repro_torch import spidr
+    from repro_torch.analysis import concurrency
+    from repro_torch.core import cim_macro
+    from repro_torch.core.quant import QuantSpec
+
+    t0 = time.perf_counter()
+    out = {"cli": _analysis_cli(), "deploys": [], "macro": []}
+    for net, bits, t_blocks in ANALYSIS_DEPLOYS:
+        spec, params, events = _analysis_inputs(torch, dev, net)
+        for n_cores in (1, 4):
+            target = {"weight_bits": bits, "n_cores": n_cores}
+            want = spidr.compile(spec, params, spidr.DeployTarget(backend="torch", **target),
+                                 device=dev, check="strict").run(events)
+            for t_block in t_blocks:
+                c = spidr.compile(spec, params, spidr.DeployTarget(t_block=t_block, **target),
+                                  device=dev, check="strict")
+                rep = c.report()
+                check(not rep.errors and ("schedule" in rep.passes) == (n_cores > 1),
+                      f"analysis {net} {bits}b x{n_cores}: report {rep.summary()}")
+                got = c.run(events)
+                for a, b, what in ((got.readout, want.readout, "readout"),
+                                   (got.spike_counts, want.spike_counts, "spike counts"),
+                                   (got.input_counts, want.input_counts, "input counts")):
+                    check(a.shape == b.shape and torch.equal(a, b),
+                          f"analysis {net} {bits}b x{n_cores} t_block={t_block}: "
+                          f"{what} differ from backend='torch'")
+                out["deploys"].append({"net": net, "bits": bits, "n_cores": n_cores,
+                                       "t_block": t_block, "passes": list(rep.passes),
+                                       "certificates": sorted(rep.certificates)})
+            if net == "optical-flow" and n_cores == 1:
+                out["flow_certificate"] = rep.certificates["overflow"]
+
+    # stress_fleet: the two fleets it serves, kept for the stream check.
+    spec, params, _ = _analysis_inputs(torch, dev, "gesture")
+    compiled = spidr.compile(spec, params, spidr.DeployTarget(**STRESS_TARGET),
+                             device=dev, check="strict")
+    fleets, serve_seeded = [], concurrency._serve_seeded
+
+    def recorded(*args, **kwargs):
+        res = serve_seeded(*args, **kwargs)
+        fleets.append(res[2])
+        return res
+
+    concurrency._serve_seeded = recorded
+    try:
+        t1 = time.perf_counter()
+        result = concurrency.stress_fleet(compiled, **STRESS)
+        stress_s = time.perf_counter() - t1
+    finally:
+        concurrency._serve_seeded = serve_seeded
+    check(result.ok and result.n_streams == STRESS["n_streams"],
+          f"stress_fleet: mismatches {result.mismatches}")
+    fleet = fleets[1]
+    s0, s1 = fleet.tick_streams.get(0, set()), fleet.tick_streams.get(1, set())
+    default = torch.cuda.default_stream(dev).cuda_stream
+    check(fleet.config.mode == "threaded" and len(fleet.replica_streams) == 2
+          and s0 == {fleet.replica_streams[0].cuda_stream}
+          and s1 == {fleet.replica_streams[1].cuda_stream}
+          and default not in s0 | s1 and not s0 & s1,
+          f"stress_fleet: replica streams {s0}, {s1}, default {default}")
+    out["stress"] = {**STRESS, **STRESS_TARGET, "ticks_sync": result.ticks_sync,
+                     "ticks_threaded": result.ticks_threaded, "mismatches": 0,
+                     "replica_streams_distinct": True, "seconds": stress_s}
+
+    # The macro model on the card: accumulate through B4.
+    for bits in MACRO_BITS:
+        for density, spikes, w, v0 in _macro_blocks(bits):
+            got = cim_macro.accumulate(
+                torch.from_numpy(spikes).to(dev), torch.from_numpy(w).to(dev),
+                torch.from_numpy(v0).to(dev), QuantSpec(bits))
+            out["macro"].append({"bits": bits, "density": density,
+                                 "got": got.cpu().numpy()})
+    torch.cuda.synchronize(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_analysis(torch, dev, runs, launches: dict) -> None:
+    """The certificate's extremes on the kernels, and the macro model
+    against the CPU and the silicon order."""
+    import numpy as np
+
+    from repro_torch.analysis import layer_overflow_facts
+    from repro_torch.core import cim_macro
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels import fused_lif_gemm as fl
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import spike_gemm as sk
+
+    t0 = time.perf_counter()
+    q = QuantSpec(EXTREME_BITS)
+    cert = runs["flow_certificate"]
+    check(cert["weight_bits"] == EXTREME_BITS, "analysis: flow certificate precision")
+    layers = {(f["fan_in"], f["out_channels"]): f for f in cert["layers"]}
+    k, n = EXTREME_WIDE
+    layers[(k, n)] = layer_overflow_facts(-1, "conv", k, n, q)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    extremes = []
+    for (k, n), facts in sorted(layers.items()):
+        s = torch.ones((EXTREME_T, EXTREME_M, k), dtype=torch.int8, device=dev)
+        thr = facts["threshold_hi"]
+        for w_val, acc, v_end in ((q.w_min, facts["acc_lo"], q.v_min),
+                                  (q.w_max, facts["acc_hi"], q.v_max)):
+            w = torch.full((k, n), w_val, dtype=torch.int8, device=dev)
+            raw = sk.spike_gemm(s[0], w)
+            check(bool((raw == acc).all()), f"extremes K={k} N={n}: B4's raw sums "
+                  f"{int(raw.min())}..{int(raw.max())} != the certificate's {acc}")
+            v0 = torch.full((EXTREME_M, n), v_end, dtype=torch.int32, device=dev)
+            v1, s1 = fl.fused_lif_gemm_int(s[0], w, v0, thr, vmem_bits=q.vmem_bits)
+            v1p, s1p = ref.fused_lif_gemm_int_ref(s[0], w, v0, thr, vmem_bits=q.vmem_bits)
+            vt, st = fl.fused_lif_gemm_int_tblk(s, w, v0, thr, vmem_bits=q.vmem_bits)
+            vtp, stp = ref.fused_lif_gemm_int_tblk_ref(s, w, v0, thr,
+                                                       vmem_bits=q.vmem_bits)
+            check(torch.equal(v1, v1p) and torch.equal(s1, s1p)
+                  and torch.equal(vt, vtp) and torch.equal(st, stp),
+                  f"extremes K={k} N={n} w={w_val}: B1/B2 differ from their plain versions")
+            check(bool((v1 == v_end).all()) and bool((vt == v_end).all())
+                  and not bool(s1.any()) and not bool(st.any()),
+                  f"extremes K={k} N={n} w={w_val}: B1/B2 did not saturate to {v_end}")
+        extremes.append({"K": k, "N": n, "M": EXTREME_M, "T": EXTREME_T,
+                         "acc_lo": facts["acc_lo"], "acc_hi": facts["acc_hi"],
+                         "saturated": [q.v_min, q.v_max],
+                         "b1_route": fl.tc_plan(EXTREME_M, k, n, sms).route,
+                         "b2_route": fl.tblk_plan(EXTREME_M, k, n, sms).route,
+                         "b4_route": sk.plan(EXTREME_M, k, n, sms).route,
+                         "bit_exact": True})
+        del s
+
+    macro, blocks = [], {b: list(_macro_blocks(b)) for b in MACRO_BITS}
+    for row in runs["macro"]:
+        bits, got = row["bits"], row["got"]
+        spec = QuantSpec(bits)
+        _, spikes, w, v0 = next(b for b in blocks[bits] if b[0] == row["density"])
+        cpu = cim_macro.accumulate(torch.from_numpy(spikes), torch.from_numpy(w),
+                                   torch.from_numpy(v0), spec).numpy()
+        seq = cim_macro.accumulate_sequential(spikes, w, v0, spec)
+        # Elements whose silicon-order partial sums all stay in range.
+        path = v0[None].astype(np.int64) + np.cumsum(
+            spikes[:, :, None].astype(np.int64) * w[:, None, :], axis=0)
+        inside = ((path >= spec.v_min) & (path <= spec.v_max)).all(axis=0)
+        check(np.array_equal(got, cpu), f"macro {bits}b density {row['density']}: "
+              "accumulate on the card != on the CPU")
+        check(got.min() >= spec.v_min and got.max() <= spec.v_max,
+              f"macro {bits}b density {row['density']}: outside [v_min, v_max]")
+        check(np.array_equal(got[inside], seq[inside]),
+              f"macro {bits}b density {row['density']}: != accumulate_sequential "
+              "where no intermediate sum leaves the range")
+        macro.append({"bits": bits, "density": row["density"], "M": 16, "K": 128,
+                      "N": spec.neurons_per_row,
+                      "b4_route": sk.plan(16, 128, spec.neurons_per_row, sms).route,
+                      "in_range_elements": int(inside.sum()),
+                      "elements": int(inside.size), "equal_cpu": True})
+    check(launches["fused_lif_gemm_int"] > 0 and launches["fused_lif_gemm_int_tblk"] > 0
+          and launches["spike_gemm"] == len(runs["macro"]),
+          f"analysis: launches {launches}")
+    emit({"phase": "analysis", "host_seconds": runs["seconds"],
+          "check_seconds": round(time.perf_counter() - t0, 3),
+          "launches": launches, "compiles_checked": COMPILES["checked"],
+          "cli": runs["cli"], "deploys": runs["deploys"], "stress": runs["stress"],
+          "extremes": extremes, "macro": macro})
+
+
+# ---------------------------------------------------------------------------
 # 6. the LM stack's kernels (B6, B7) against their plain versions, timed
 # ---------------------------------------------------------------------------
 WKV_TOL = {"rtol": 2e-4, "atol": 2e-5}
@@ -2578,6 +2902,73 @@ def _lockstep_prefill(torch, cfg, params, tokens) -> dict:
     return tot
 
 
+def _lockstep_routes(torch, cfg, params, tokens) -> dict:
+    """One prefill walked by both routes side by side, each from its own
+    residual stream: after each layer, the largest difference of the two
+    residual streams and the largest residual (where the routes part)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    h = M._embed(params, tokens)
+    b, _, d = h.shape
+    x0 = h.new_zeros((b, d))
+    s0 = torch.zeros((b, d // LM_HEAD_SIZE, LM_HEAD_SIZE, LM_HEAD_SIZE),
+                     dtype=torch.float32, device=h.device)
+    hk = hp = h
+    diff, top = [], []
+    for i in range(cfg.n_layers):
+        lp = T.layer(params["blocks"], i)
+        hk, _ = T._rwkv_block(lp, hk, (x0, x0, s0), cfg, use_kernel=True)
+        hp, _ = T._rwkv_block(lp, hp, (x0, x0, s0), cfg, use_kernel=False)
+        diff.append(float((hk.float() - hp.float()).abs().max()))
+        top.append(float(hp.float().abs().max()))
+    return {"dtype": str(h.dtype), "tokens": int(tokens.shape[1]),
+            "residual_max_abs_diff": diff, "residual_max_abs": top}
+
+
+def _served_fp32(torch, dev, cfg, masters) -> dict:
+    """The 8 requests served through the kernel and the plain routes in
+    float32 compute (the float32 masters).  A token may differ only where
+    the plain route's float32 top-2 gap is within ``2 * FP32_LOGIT_REL``
+    of the largest float32 logit: the bound the routes' logits are held
+    to, on each of the two logits."""
+    import numpy as np
+
+    from repro_torch.models import model as M
+
+    M.COMPUTE_DTYPE = torch.float32
+    try:
+        kern, kern_s = _serve_lm(torch, dev, cfg, masters, use_kernel=True)
+        plain, plain_s = _serve_lm(torch, dev, cfg, masters, use_kernel=False)
+        got = {r.rid: r.generated for r in kern.done}
+        want = {r.rid: r.generated for r in plain.done}
+        prompts = {r.rid: r.prompt for r in _lm_requests(cfg)}
+        prefill = M.make_prefill_step(cfg, use_kernel=False)
+        differ = []
+        for rid, toks in sorted(want.items()):
+            diff = [i for i, (a, b) in enumerate(zip(got[rid], toks)) if a != b]
+            if not diff:
+                continue
+            i = diff[0]
+            seq = np.concatenate([prompts[rid], np.asarray(toks[:i], np.int64)])
+            with torch.no_grad():
+                logits, _ = prefill(masters, {"tokens": torch.from_numpy(seq[None]).to(dev)})
+            row = logits[0, :cfg.vocab_size]
+            top2 = torch.topk(row, 2).values
+            gap = float(top2[0] - top2[1])
+            bound = 2 * FP32_LOGIT_REL * float(row.abs().max())
+            differ.append({"rid": rid, "token": i, "plain_top2_gap": gap, "bound": bound})
+            check(gap <= bound, f"lm float32: request {rid} token {i} differs between "
+                  f"the kernel and plain routes with a top-2 gap of {gap} > {bound}")
+    finally:
+        M.COMPUTE_DTYPE = torch.bfloat16
+    check(sorted(got) == sorted(want) == list(range(LM_REQUESTS)),
+          "lm float32: not every request served")
+    return {"requests_equal": sum(got[r] == want[r] for r in want),
+            "requests_differing": differ, "kernel_serve_seconds": kern_s,
+            "plain_serve_seconds": plain_s}
+
+
 def check_lm(torch, dev, lm) -> None:
     import numpy as np
 
@@ -2637,6 +3028,10 @@ def check_lm(torch, dev, lm) -> None:
             differ.append({"rid": rid, "token": i, "plain_top2_gap": gap, "tol": tol})
             check(gap <= tol, f"lm: request {rid} token {i} differs between the "
                   f"kernel and plain routes with a top-2 gap of {gap} > {tol}")
+    with torch.no_grad():
+        routes16 = _lockstep_routes(torch, cfg, params, torch.from_numpy(
+            prompts[0][None].astype(np.int64)).to(dev))
+    served32 = _served_fp32(torch, dev, cfg, lm["masters"])
     emit({"phase": "lm_check", "prefill_tokens": 512, "lockstep": lock,
           "tolerance": WKV_TOL, "walk_equals_plain_forward": walk_is_plain,
           "bf16_logits_max_abs_diff_kernel_vs_plain": dlogit, "bf16_largest_logit": top,
@@ -2645,6 +3040,8 @@ def check_lm(torch, dev, lm) -> None:
           "served_requests_equal": sum(got[r] == want[r] for r in want),
           "served_requests_differing": differ, "token_gap_tolerance": tol,
           "plain_route_serve_seconds": ref_seconds,
+          "bf16_lockstep_served_prefill": routes16,
+          "fp32_served": served32,
           "seconds": round(time.perf_counter() - t0, 3)})
 
 if __name__ == "__main__":

@@ -24,6 +24,11 @@ The layout mirrors ``repro`` so each module's counterpart is easy to find:
                ``launch/serve.py`` is its CLI
     roofline/  ``PerfModel``: the analytic bound of a deployment at the
                H100's peaks (``CompiledSNN.roofline``)
+    analysis/  deploy-time static analysis: the overflow certificate,
+               schedule verification, the fleet's lock lint and
+               ``stress_fleet``, the purity lint (``spidr.compile(...,
+               check=...)``, ``CompiledSNN.report()``,
+               ``python -m repro_torch.analysis``)
     models/    the LM stack's ``ssm`` family (RWKV6): prefill on the wkv
                kernel, decode by the recurrence; ``launch/serve.py --arch``
                serves it through ``Server``
@@ -45,7 +50,31 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+# The public surface is the reference's (``repro.__all__``): the facade and
+# the objects that build its inputs.  ``resolve_device`` stays a module
+# attribute outside it; it is defined before the re-exports below, because
+# the modules they import take it from here.
+__all__ = [
+    # The deployment facade (the primary public API).
+    "spidr",
+    "CompiledSNN",
+    "DeployTarget",
+    "StreamSession",
+    "VerifyReport",
+    # The serving fleet (spidr.serve).
+    "Fleet",
+    "ServeConfig",
+    # Network construction.
+    "SNNSpec",
+    "gesture_net",
+    "optical_flow_net",
+    "init_params",
+    # Precision configuration.
+    "QuantSpec",
+    "SUPPORTED_PRECISIONS",
+    # Trained integer artifact (deploys via spidr.compile / spidr.load).
+    "ExportedNetwork",
+]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,3 +90,17 @@ def resolve_device(device=None) -> torch.device:
             "False — run on a machine with an NVIDIA GPU, or pass "
             "device='cpu' to use the plain PyTorch kernels")
     return dev
+
+
+from . import spidr  # noqa: E402  (after resolve_device: see above)
+from .core.network import SNNSpec, gesture_net, init_params, optical_flow_net  # noqa: E402
+from .core.quant import SUPPORTED_PRECISIONS, QuantSpec  # noqa: E402
+from .snn.export import ExportedNetwork  # noqa: E402
+from .spidr import (  # noqa: E402
+    CompiledSNN,
+    DeployTarget,
+    Fleet,
+    ServeConfig,
+    StreamSession,
+    VerifyReport,
+)

@@ -94,7 +94,10 @@ class Server:
         self.decode_step = M.make_decode_step(cfg)
         self.prefill = M.make_prefill_step(cfg, use_kernel=use_kernel)
         # Batched cache: slot i belongs to active request i (or is empty).
-        self.cache = init_decode_state(cfg, capacity, ctx_len, device=self.device)
+        # Its token-shift rows are kept in the compute dtype (bfloat16 as
+        # served, the reference's; float32 when the model computes in it).
+        self.cache = init_decode_state(cfg, capacity, ctx_len, dtype=M.COMPUTE_DTYPE,
+                                       device=self.device)
         self.slots: list = [None] * capacity
         self.slot_len = np.zeros(capacity, np.int32)
         self.next_tok = np.zeros((capacity, 1), np.int64)

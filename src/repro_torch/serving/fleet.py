@@ -597,8 +597,11 @@ class Fleet:
                 stream.wait_stream(torch.cuda.default_stream(dev))
                 if isinstance(self.workers[i], StreamWorker):
                     self.workers[i].sessions.record_stream(stream)
-                self.replica_streams[i] = stream
-                self.tick_streams[i] = set()
+                # Fleet state: written under the lock like every other
+                # mutation (the replica threads read it).
+                with self._lock:
+                    self.replica_streams[i] = stream
+                    self.tick_streams[i] = set()
             t = threading.Thread(target=self._replica_loop, args=(i,),
                                  name=f"spidr-replica-{i}", daemon=True)
             self._threads.append(t)

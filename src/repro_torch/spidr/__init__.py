@@ -25,8 +25,7 @@
     tuned = spidr.compile(spec, params, spidr.DeployTarget(autotune=True))
     tuned.roofline(batch=4)["bound_us"]           # the H100 bound of a chunk
 """
-from ..serving import (Fleet, FleetOverloaded, ServeConfig, SessionScheduler,
-                       StreamHandle, StreamProgress, serve)
+from ..serving import Fleet, FleetOverloaded, ServeConfig, StreamHandle, serve
 from .compiled import (CompiledSNN, SlotUpdate, StreamSession, VerifyReport,
                        compile, load, read_snapshot_meta, restore)
 from .target import BACKENDS, PRECISION_PAIRS, DeployTarget
@@ -39,10 +38,8 @@ __all__ = [
     "FleetOverloaded",
     "PRECISION_PAIRS",
     "ServeConfig",
-    "SessionScheduler",
     "SlotUpdate",
     "StreamHandle",
-    "StreamProgress",
     "StreamSession",
     "VerifyReport",
     "compile",

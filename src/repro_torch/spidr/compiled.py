@@ -40,8 +40,12 @@ bit-exact with single-core execution.  A :class:`CompiledSNN` offers
 
 ``DeployTarget(autotune=True)`` measures each weight layer's ``t_block`` on
 the deployment's device (``kernels.autotune``) and bakes the winner into
-the engine as ``EngineLayer.kcfg``; every candidate is bit-exact.  The
-static-analysis report (ROADMAP A11) belongs to a later slice of the port.
+the engine as ``EngineLayer.kcfg``; every candidate is bit-exact.
+
+``compile(..., check="strict"|"warn"|"off")`` gates the build on the
+deploy-time static analysis (``repro_torch.analysis``: overflow
+certificate + schedule verification), as the reference's does, and
+``CompiledSNN.report()`` returns it.
 """
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ import dataclasses
 import json
 import os
 import time
-from typing import Optional
+import warnings
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
@@ -92,8 +97,14 @@ from ..snn.export import (
 )
 from .target import DeployTarget, _require_positive_int
 
+if TYPE_CHECKING:  # pragma: no cover
+    from ..analysis import AnalysisReport
+
 __all__ = ["CompiledSNN", "SlotUpdate", "StreamSession", "VerifyReport",
            "compile", "load", "read_snapshot_meta", "restore"]
+
+#: ``spidr.compile(..., check=...)`` modes for the static-analysis gate.
+CHECK_MODES = ("strict", "warn", "off")
 
 # Live-session snapshot artifact: one Checkpointer step whose metadata
 # carries this key (the reference's), distinct from the ``snn.export``
@@ -363,6 +374,7 @@ class CompiledSNN:
         self._base_engine = engine if base_engine is None else base_engine
         self._sessions: list = []   # every StreamSession opened here
         self._device_engines: dict = {}   # device -> engine copied there
+        self._analysis: Optional["AnalysisReport"] = None
 
     @property
     def device(self) -> torch.device:
@@ -376,6 +388,22 @@ class CompiledSNN:
     @property
     def n_cores(self) -> int:
         return self.target.n_cores
+
+    def report(self) -> "AnalysisReport":
+        """The deployment's static-analysis report (``repro_torch.analysis``).
+
+        Overflow certificates plus schedule verification for *this*
+        network at *this* precision and core count.  Populated by
+        :func:`compile` unless it ran with ``check="off"``; computed
+        lazily here otherwise — so the certificate is always available,
+        the ``check`` mode only decides whether findings gate the build.
+        """
+        if self._analysis is None:
+            from .. import analysis
+
+            self._analysis = analysis.analyze_deployment(
+                self.spec, self.target.qspec, self.schedule)
+        return self._analysis
 
     def engine_on(self, device=None) -> SNNEngine:
         """The deployment's engine on ``device``: :attr:`engine` itself for
@@ -692,7 +720,8 @@ def _apply_schedule(base: SNNEngine, spec: SNNSpec, target: DeployTarget,
 
 
 def compile(network, params=None, target: Optional[DeployTarget] = None, *,
-            spec: Optional[SNNSpec] = None, device=None) -> CompiledSNN:
+            spec: Optional[SNNSpec] = None, device=None,
+            check: str = "warn") -> CompiledSNN:
     """Deploy a network onto a :class:`DeployTarget`.
 
       ``compile(spec, float_params, target)``
@@ -707,7 +736,36 @@ def compile(network, params=None, target: Optional[DeployTarget] = None, *,
     ``target`` defaults to ``DeployTarget()`` (4/7-bit, one core, fused CUDA
     kernels).  ``device=None`` means the card and raises when there is
     none; pass ``device="cpu"`` for the plain PyTorch kernels.
+
+    ``check`` gates the build on deploy-time static analysis
+    (``repro_torch.analysis``: overflow certification + schedule
+    verification).  ``"strict"`` raises
+    :class:`~repro_torch.analysis.AnalysisError` on any error-level
+    finding, ``"warn"`` (the default) emits a ``RuntimeWarning``, ``"off"``
+    skips the analysis at compile time (``CompiledSNN.report()`` still
+    computes it on demand).
     """
+    if check not in CHECK_MODES:
+        raise ValueError(
+            f"check must be one of {CHECK_MODES}, got {check!r}")
+    compiled = _compile(network, params, target, spec, device)
+    if check != "off":
+        report = compiled.report()
+        if report.errors:
+            if check == "strict":
+                from ..analysis import AnalysisError
+
+                raise AnalysisError(report)
+            warnings.warn(
+                f"static analysis found {len(report.errors)} violation(s) "
+                f"in {report.subject} — see CompiledSNN.report() "
+                "(compile with check='strict' to fail the build)",
+                RuntimeWarning, stacklevel=2)
+    return compiled
+
+
+def _compile(network, params, target: Optional[DeployTarget],
+             spec: Optional[SNNSpec], device) -> CompiledSNN:
     target = target or DeployTarget()
     dev = resolve_device(device)
     cfg = _engine_config(target)

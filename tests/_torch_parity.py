@@ -26,7 +26,8 @@ def jax_ref():
         import jax
         import jax.numpy as jnp
 
-        from repro import compiler, spidr, serving
+        from repro import analysis, compiler, spidr, serving
+        from repro.analysis import __main__ as analysis_cli
         from repro.checkpoint import checkpoint
         from repro.configs import base as lm_configs
         from repro.configs import spidr_gesture, spidr_optflow
@@ -48,7 +49,8 @@ def jax_ref():
         from repro.runtime import fault_tolerance
         from repro.snn import data, export, train
     return types.SimpleNamespace(
-        jax=jax, jnp=jnp, spidr=spidr, serving=serving, quant=quant,
+        jax=jax, jnp=jnp, analysis=analysis, analysis_cli=analysis_cli,
+        spidr=spidr, serving=serving, quant=quant,
         neuron=neuron, layers=layers, network=network, engine=inference,
         kernels=fused_lif_gemm, ref=ref, data=data,
         spike_gemm=spike_gemm, lif_step=lif_step, modes=modes, energy=energy,
