@@ -130,7 +130,27 @@ Phases, each printing JSON lines:
                 bound fixed before the run); the bfloat16 residual stream
                 of one served prefill, both routes side by side, layer by
                 layer
- 10. a ``kernels`` line: launches on phases 3-6, 6c, 6d and 8, max error, kernel /
+ 10. lm families  (ROADMAP A12.1; no kernel of the port runs here, and the
+                phase checks that no launch count moves) (a) each of the nine
+                attention / MoE / hybrid architectures in registry order at
+                full published width, bfloat16 serving copies drawn layer
+                by layer (``init_serving_params``, seed 0; no float32
+                masters on the card), serving 8 requests of 64 tokens (8
+                new each) at capacity 4 through the port's Server: every
+                logit row finite, every token below ``vocab_size``, 8
+                tokens per request; outside MoE the decode of token 65
+                after a 64-token prefill against a 65-token prefill's last
+                logits, within 0.05 of its largest logit; one JSON line per
+                arch (parameters, GB, peak memory, init seconds, prefill
+                and decode host ms, tokens/s, MoE drop fraction); the card
+                freed between archs.  (b) each arch's ``reduced()`` config,
+                the same parameters on the card and on the CPU (TF32 off):
+                teacher-forced logits of a prefill and 4 decode steps
+                within 0.05 of the largest logit, and ragged prompts (8,
+                12, 8, 40 tokens at capacity 2) served on both with equal
+                tokens except at a near tie of the CPU's top-2 gap (by the
+                same bound)
+ 11. a ``kernels`` line: launches on phases 3-6, 6c, 6d and 8, max error, kernel /
      plain / bound / library times per kernel
 
 then the card's name and power limit (nvidia-smi) and, last, the line
@@ -312,6 +332,11 @@ def main() -> int:
                    "fleet + autotune + train + analysis + lm",
           "launches": launches})
     check_lm(torch, dev, lm)
+    del lm
+    kernels.reset_launches()
+    phase_lm_families(torch, dev, card)
+    moved = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    check(not moved, f"lm_families: the LM families launched kernels {moved}")
     for name in KERNEL_INFO:
         check(launches[name] > 0, f"no path launched {name}")
     emit({"kernels": [dict(name=name, route="cuda", launches=launches[name],
@@ -3043,6 +3068,251 @@ def check_lm(torch, dev, lm) -> None:
           "bf16_lockstep_served_prefill": routes16,
           "fp32_served": served32,
           "seconds": round(time.perf_counter() - t0, 3)})
+
+
+# ---------------------------------------------------------------------------
+# 10. the LM families: nine architectures at full width, then card vs CPU
+# ---------------------------------------------------------------------------
+FAMILY_ARCHS = ("qwen1.5-0.5b", "starcoder2-3b", "qwen3-14b", "stablelm-3b",
+                "granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "musicgen-large",
+                "chameleon-34b", "zamba2-7b")
+FAMILY_REL = 0.05          # the reference's bar for two bfloat16 computations
+FAMILY_RAGGED = (8, 12, 8, 40)
+
+
+def _free(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _watch_logits(torch, server) -> list:
+    """Wrap a Server's prefill and decode steps to keep, on the device and
+    without a sync, whether each logits row they return is finite."""
+    flags = []
+    prefill, decode = server.prefill, server.decode_step
+
+    def watched_prefill(params, batch):
+        logits, cache = prefill(params, batch)
+        flags.append(torch.isfinite(logits).all())
+        return logits, cache
+
+    def watched_decode(params, cache, batch):
+        logits, cache, aux = decode(params, cache, batch)
+        flags.append(torch.isfinite(logits).all())
+        return logits, cache, aux
+
+    server.prefill, server.decode_step = watched_prefill, watched_decode
+    return flags
+
+
+def _record_rows(server) -> dict:
+    """Wrap a Server's steps to keep each request's logits rows in order
+    (prefills run in submission order, the rids counted from 0)."""
+    rows, admitted = {}, []
+    prefill, decode = server.prefill, server.decode_step
+
+    def rec_prefill(params, batch):
+        logits, cache = prefill(params, batch)
+        rows.setdefault(len(admitted), []).append(logits[0].float().cpu())
+        admitted.append(True)
+        return logits, cache
+
+    def rec_decode(params, cache, batch):
+        active = [(i, r.rid) for i, r in enumerate(server.slots) if r is not None]
+        logits, cache, aux = decode(params, cache, batch)
+        for i, rid in active:
+            rows[rid].append(logits[i].float().cpu())
+        return logits, cache, aux
+
+    server.prefill, server.decode_step = rec_prefill, rec_decode
+    return rows
+
+
+def _decode_cache(torch, cfg, c1, ctx: int, device) -> dict:
+    """A decode cache of context ``ctx`` holding a prefill's cache ``c1``
+    (every slot at the prefill's length)."""
+    from repro_torch.models import transformer as T
+
+    plen = c1["k"].shape[3]
+    batch = c1["k"].shape[1]
+    cache = T.init_decode_state(cfg, batch, ctx, device=device)
+    for key, dst in cache.items():
+        if key in ("k", "v"):
+            dst[:, :, :, :plen] = c1[key]
+        elif key != "len":
+            dst.copy_(c1[key])
+    cache["len"] = torch.tensor(plen, dtype=torch.int32, device=device)
+    return cache
+
+
+def _decode_after_prefill(torch, dev, cfg, params, seq) -> float:
+    """Decode token 65 after a 64-token prefill against the last logits of
+    a 65-token prefill: max |difference| over the largest logit."""
+    from repro_torch.models import model as M
+
+    prefill = M.make_prefill_step(cfg)
+    with torch.no_grad():
+        full, _ = prefill(params, {"tokens": seq})
+        _, c1 = prefill(params, {"tokens": seq[:, :-1]})
+        cache = _decode_cache(torch, cfg, c1, LM_CTX, dev)
+        step, _ = M.make_decode_step(cfg)(params, cache, {"tokens": seq[:, -1:]})
+    return float((step - full).abs().max() / full.abs().max())
+
+
+def _family_full_width(torch, dev, card, name) -> dict:
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import model as M
+
+    cfg = get_config(name)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    params = M.init_serving_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_tree = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    warm = Server(cfg, params, capacity=LM_CAPACITY, ctx_len=LM_CTX)
+    warm.submit(Request(rid=0, max_new=2, prompt=np.arange(LM_PROMPT, dtype=np.int32)))
+    while warm.step():
+        pass
+    del warm
+    server = Server(cfg, params, capacity=LM_CAPACITY, ctx_len=LM_CTX)
+    finite = _watch_logits(torch, server)
+    requests = _lm_requests(cfg)
+    for req in requests:
+        server.submit(req)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    while server.step():
+        pass
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    done = {r.rid: r.generated for r in server.done}
+    check(bool(torch.stack(finite).all()), f"lm_families {name}: a logits row is not finite")
+    check(sorted(done) == list(range(LM_REQUESTS)), f"lm_families {name}: not every request served")
+    check(all(len(t) == LM_NEW for t in done.values()),
+          f"lm_families {name}: a request did not get {LM_NEW} tokens")
+    check(all(0 <= x < cfg.vocab_size for t in done.values() for x in t),
+          f"lm_families {name}: a token at or past vocab_size {cfg.vocab_size}")
+    tokens = sum(len(t) for t in done.values())
+    row = {"phase": "lm_families", "arch": name, "card": card, "family": cfg.family,
+           "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params_tree": n_tree, "params_analytic": cfg.param_count(),
+           "active_params_analytic": cfg.active_param_count(),
+           "serving_gb": nbytes / 1e9, "bf16_gb": 2 * n_tree / 1e9,
+           "resident_before_gb": resident / 1e9, "init_seconds": init_s,
+           "requests": LM_REQUESTS, "capacity": LM_CAPACITY, "prompt_len": LM_PROMPT,
+           "max_new": LM_NEW, "tokens": tokens, "serve_seconds": seconds,
+           "tokens_per_s": tokens / seconds, "prefills": server.prefills,
+           "prefill_ms_each": 1e3 * server.prefill_seconds / server.prefills,
+           "decode_steps": server.decode_steps,
+           "decode_ms_each": 1e3 * server.decode_seconds / server.decode_steps,
+           "drop_fraction_mean": (float(np.mean(server.drop_fractions))
+                                  if server.drop_fractions else None)}
+    if cfg.family != "moe":
+        # MoE is left out: a prefill's capacity can drop the last token's
+        # routing (token-major priority), which the decode step never does.
+        seq = torch.from_numpy(np.concatenate([requests[0].prompt, done[0][:1]])[None]
+                               .astype(np.int64)).to(dev)
+        rel = _decode_after_prefill(torch, dev, cfg, params, seq)
+        row["decode_vs_prefill_rel"] = rel
+        check(rel <= FAMILY_REL, f"lm_families {name}: decode of token 65 differs from "
+              f"the 65-token prefill by {rel} of the largest logit")
+    row["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, server
+    _free(torch)
+    return row
+
+
+def _to_device(tree, dev):
+    from repro_torch.models.transformer import _map_tree
+
+    return {k: (v.to(dev) if hasattr(v, "to") else _map_tree(lambda g, f, t: t.to(dev), v))
+            for k, v in tree.items()}
+
+
+def _family_card_vs_cpu(torch, dev, card, name) -> dict:
+    """The reduced config, the same serving parameters on the card and on
+    the CPU: teacher-forced logits, then ragged prompts served on both."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import model as M
+
+    cfg = get_config(name).reduced()
+    cpu = M.init_serving_params(torch.Generator().manual_seed(0), cfg)
+    gpu = _to_device(cpu, dev)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (2, 16 + 4)).astype(np.int64)
+    worst = 0.0
+    logits = {}
+    with torch.no_grad():
+        for where, params, d in (("cpu", cpu, torch.device("cpu")), ("card", gpu, dev)):
+            t = torch.from_numpy(toks).to(d)
+            lg, c1 = M.make_prefill_step(cfg)(params, {"tokens": t[:, :16]})
+            cache = _decode_cache(torch, cfg, c1, 32, d)
+            rows = [lg.float().cpu()]
+            for j in range(4):
+                lg, cache = M.make_decode_step(cfg)(params, cache,
+                                                     {"tokens": t[:, 16 + j:17 + j]})
+                rows.append(lg.float().cpu())
+            logits[where] = rows
+    for a, b in zip(logits["cpu"], logits["card"]):
+        worst = max(worst, float((a - b).abs().max() / a.abs().max()))
+    check(worst <= FAMILY_REL, f"lm_families {name} reduced: card logits differ from the "
+          f"CPU's by {worst} of the largest logit")
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in FAMILY_RAGGED]
+    served, rows = {}, {}
+    for where, params in (("cpu", cpu), ("card", gpu)):
+        server = Server(cfg, params, capacity=2, ctx_len=64)
+        rows[where] = _record_rows(server)
+        for i, p in enumerate(prompts):
+            server.submit(Request(rid=i, prompt=p, max_new=5))
+        while server.step():
+            pass
+        served[where] = {r.rid: r.generated for r in server.done}
+    ties = []
+    for rid, want in served["cpu"].items():
+        got = served["card"][rid]
+        check(len(got) == len(want) == 5, f"lm_families {name} reduced: request {rid} length")
+        diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        if diff:
+            top2 = torch.topk(rows["cpu"][rid][diff[0]], 2).values
+            gap = float(top2[0] - top2[1])
+            bound = FAMILY_REL * float(rows["cpu"][rid][diff[0]].abs().max())
+            ties.append({"rid": rid, "token": diff[0], "cpu_top2_gap": gap, "bound": bound})
+            check(gap <= bound, f"lm_families {name} reduced: request {rid} token {diff[0]} "
+                  f"differs between card and CPU with a top-2 gap {gap} > {bound}")
+    return {"arch": name, "teacher_forced_rel": worst,
+            "requests_equal": sum(served["card"][r] == served["cpu"][r] for r in served["cpu"]),
+            "near_ties": ties}
+
+
+def phase_lm_families(torch, dev, card) -> None:
+    # The MoE router, the attention scores and the SSD are float32 in the
+    # reference: no TF32 (the train phase switches it on for one check).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    for name in FAMILY_ARCHS:
+        emit(_family_full_width(torch, dev, card, name))
+    full_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = [_family_card_vs_cpu(torch, dev, card, name) for name in FAMILY_ARCHS]
+    emit({"phase": "lm_families_card_vs_cpu", "card": card, "bound_rel": FAMILY_REL,
+          "ragged_prompts": list(FAMILY_RAGGED), "capacity": 2, "archs": rows,
+          "full_width_seconds": full_s, "seconds": time.perf_counter() - t0})
+
 
 if __name__ == "__main__":
     try:

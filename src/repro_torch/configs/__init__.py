@@ -1,2 +1,2 @@
 """Configurations: the paper's SNN networks (Table II) and the LM registry
-(``base.get_config``; ``rwkv6-7b`` is the ported LM)."""
+(``base.get_config``: the reference's ten LMs)."""

@@ -12,9 +12,12 @@ turns it into the port's ``TrainState``, so both packages can step from
 the same state.
 
 ``repro.models.model.init_params`` returns the LM's parameter pytree:
-nested dicts whose RWKV6 leaves sit in a ``RWKV6Params`` NamedTuple, each
-leaf layer-stacked.  :func:`lm_params_from_jax` turns the same tree, with
-numpy leaves, into the port's (same keys, same field names, same layouts).
+nested dicts whose block leaves sit in NamedTuples (``AttentionParams``,
+``FFNParams``, ``MoEParams``, ``Mamba2Params``, ``RWKV6Params``), each leaf
+layer-stacked, with ``None`` for the leaves a config leaves out (biases,
+qk-norm scales, the GELU FFN's gate, the hybrid's missing tail).
+:func:`lm_params_from_jax` turns the same tree, with numpy leaves, into the
+port's (same keys, same field names, same layouts).
 
 Nothing of JAX is imported: the caller hands over numpy arrays.
 """
@@ -53,11 +56,18 @@ def train_state_from_jax(state, device=None):
 
 def lm_params_from_jax(np_tree, device=None):
     """The LM parameter tree with numpy leaves -> the same tree of tensors
-    on ``device``; a NamedTuple with ``RWKV6Params``' fields becomes the
-    port's ``RWKV6Params``.  Leaves keep their dtype."""
+    on ``device``; a NamedTuple with the fields of one of the port's
+    parameter groups becomes that group.  Leaves keep their dtype; ``None``
+    stays ``None``; any other NamedTuple raises ``TypeError``."""
+    from .models.attention import AttentionParams
+    from .models.ffn import FFNParams
+    from .models.mamba2 import Mamba2Params
+    from .models.moe import MoEParams
     from .models.rwkv6 import RWKV6Params
 
     dev = resolve_device(device)
+    groups = {tuple(g._fields): g for g in (AttentionParams, FFNParams, MoEParams,
+                                            Mamba2Params, RWKV6Params)}
 
     def conv(x):
         if x is None:
@@ -65,9 +75,10 @@ def lm_params_from_jax(np_tree, device=None):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
         if hasattr(x, "_fields"):
-            if tuple(x._fields) != RWKV6Params._fields:
+            group = groups.get(tuple(x._fields))
+            if group is None:
                 raise TypeError(f"unknown parameter group {type(x).__name__}")
-            return RWKV6Params(*(conv(v) for v in x))
+            return group(*(conv(v) for v in x))
         return torch.tensor(np.array(x), device=dev)
 
     return conv(np_tree)

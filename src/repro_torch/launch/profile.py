@@ -5,6 +5,7 @@
     python -m repro_torch.launch.profile --snn gesture --batch 4 --t-block 4
     python -m repro_torch.launch.profile --snn optical-flow --stream --batch 2 --chunk-T 5 --t-block 5 1
     python -m repro_torch.launch.profile --arch rwkv6-7b --prompt-len 512 --batch 4
+    python -m repro_torch.launch.profile --arch moonshot-v1-16b-a3b --prompt-len 64 --batch 4
     python -m repro_torch.launch.profile --float-forward gesture
     python -m repro_torch.launch.profile --float-forward optical-flow
 
@@ -16,11 +17,13 @@ multi-core plan above 1), ``--weight-bits`` and ``--t-block`` given
 one steady-state tick of a ``StreamWorker`` instead (``--batch`` live
 streams in as many slots, ``--chunk-T`` timesteps per tick, the per-tick
 rewind mark included), with the device time of the host copies and the
-host time of one ``state_dict``.  ``--arch``:
-builds the LM at full published width (random weights from a fixed seed,
-bfloat16 serving copies) and profiles one prefill of ``--prompt-len``
+host time of one ``state_dict``.  ``--arch`` (any of the reference's ten
+LMs): builds the LM at full published width (random weights from a fixed
+seed, bfloat16 serving copies drawn layer by layer,
+``init_serving_params``) and profiles one prefill of ``--prompt-len``
 tokens (one request, as the server admits them) and one decode step over
-``--batch`` slots.  ``--float-forward gesture``: the quickstart's float
+``--batch`` slots against a context of ``--prompt-len``.
+``--float-forward gesture``: the quickstart's float
 forward (``run_snn(mode="train")`` on the gesture net at 64x64, T=10,
 batch 4, random weights and events from fixed seeds; one fused float
 kernel launch per weight layer-timestep); ``--float-forward
@@ -36,12 +39,15 @@ warmed up, then
 Prints one JSON object per workload: host ms per run, device ms per run,
 the device's busy share (device ms / host ms) and the kernels that took
 the device time, largest first; for the LM also the share of the wkv
-kernel and of the matrix products, for the float forward the share of
-the fused float kernel (B3).  Needs a CUDA device.
+kernel, of the matrix products, of the attention blocks (projections
+included) and of the MoE layers (router, dispatch, experts, combine);
+for the float forward the share of the fused float kernel (B3).  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -55,6 +61,11 @@ from ..snn.data import make_flow_batch, make_gesture_batch
 # Substrings of the device kernels that are matrix products (cuBLAS,
 # cuBLASLt, CUTLASS) in a profile.
 _GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "gemv")
+
+# The block functions whose device time the LM profile reports apart:
+# ``transformer``'s names -> the profiler range their calls run in.
+_LM_RANGES = {"attention_forward": "attention", "decode_attention": "attention",
+              "moe_forward": "moe"}
 
 
 def _card(device):
@@ -80,10 +91,18 @@ def _measure(fn, dev, repeats: int) -> dict:
         fn()
         torch.cuda.synchronize(dev)
     by_kernel: dict = {}
+    kernel_sums: dict = {}   # a ``_ranges`` range: the device time of its kernels
+    spans: dict = {}         # its span on the device timeline, where traced
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        cuda = e.device_type == torch.autograd.DeviceType.CUDA
+        if e.name in _LM_RANGES.values():
+            into, us = (spans, e.time_range.elapsed_us()) if cuda else \
+                (kernel_sums, e.device_time_total)
+            into[e.name] = into.get(e.name, 0.0) + us
+        elif cuda:
             n, us = by_kernel.get(e.name, (0, 0.0))
             by_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    by_range = kernel_sums if any(kernel_sums.values()) else spans
     device_ms = sum(us for _, us in by_kernel.values()) / 1e3
     host_med = sorted(host_ms)[len(host_ms) // 2]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
@@ -92,35 +111,59 @@ def _measure(fn, dev, repeats: int) -> dict:
         "host_ms": host_ms, "host_ms_median": host_med,
         "device_ms": device_ms if by_kernel else None,
         "device_busy_share": device_ms / host_med if by_kernel else None,
-        "by_kernel": by_kernel,
+        "by_kernel": by_kernel, "by_range": by_range,
         "kernels": [{"name": name[:120], "launches": n, "ms": us / 1e3}
                     for name, (n, us) in top],
     }
 
 
+@contextlib.contextmanager
+def _ranges(module, ranges: dict):
+    """Run each named function of ``module`` inside a profiler range of
+    its label while the block is open (nothing is wrapped outside it)."""
+    saved = {name: getattr(module, name) for name in ranges}
+
+    def wrap(fn, label):
+        def inner(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return inner
+
+    for name, label in ranges.items():
+        setattr(module, name, wrap(saved[name], label))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
 def profile_lm(arch: str, prompt_len: int, batch: int, repeats: int,
                device=None) -> list:
     """One prefill (B=1, ``prompt_len`` tokens) and one decode step over
-    ``batch`` slots of the full-width LM."""
+    ``batch`` slots of the full-width LM, against ``prompt_len`` cached
+    positions."""
     from ..configs.base import get_config
     from ..models import model as M
+    from ..models import transformer
     from ..models.transformer import init_decode_state
 
     dev = _card(device)
     cfg = get_config(arch)
-    params = M.serving_params(M.init_params(
-        torch.Generator(device=dev).manual_seed(0), cfg))
+    params = M.init_serving_params(torch.Generator(device=dev).manual_seed(0), cfg)
     g = torch.Generator(device=dev).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=g, device=dev)
     prefill, decode = M.make_prefill_step(cfg), M.make_decode_step(cfg)
     cache = init_decode_state(cfg, batch, prompt_len + 1, device=dev)
+    cache["len"] = torch.tensor(prompt_len, dtype=torch.int32, device=dev)
     tokens = torch.randint(0, cfg.vocab_size, (batch, 1), generator=g, device=dev)
     out = []
     for name, fn in (("prefill", lambda: prefill(params, {"tokens": prompt})),
                      ("decode", lambda: decode(params, cache, {"tokens": tokens}))):
-        with torch.no_grad():
+        with torch.no_grad(), _ranges(transformer, _LM_RANGES):
             res = _measure(fn, dev, repeats)
         by_kernel = res.pop("by_kernel")
+        by_range = res.pop("by_range")
         total = sum(us for _, us in by_kernel.values()) or 1.0
 
         def share(pred):
@@ -131,7 +174,9 @@ def profile_lm(arch: str, prompt_len: int, batch: int, repeats: int,
                     "tokens": prompt_len if name == "prefill" else batch,
                     "batch": 1 if name == "prefill" else batch, **res,
                     "wkv_share": share(lambda k: "wkv" in k),
-                    "gemm_share": share(lambda k: any(s in k for s in _GEMM_NAMES))})
+                    "gemm_share": share(lambda k: any(s in k for s in _GEMM_NAMES)),
+                    "attention_share": by_range.get("attention", 0.0) / total,
+                    "moe_share": by_range.get("moe", 0.0) / total})
     return out
 
 
@@ -149,6 +194,7 @@ def profile_run(snn: str, batch: int, t_block: int, repeats: int,
 
     res = _measure(lambda: compiled.run(events), dev, repeats)
     res.pop("by_kernel")
+    res.pop("by_range")
     return {"snn": snn, "hw": list(spec.input_hw), "T": spec.timesteps,
             "batch": batch, "t_block": t_block, "n_cores": n_cores,
             "weight_bits": weight_bits, **res}
@@ -179,6 +225,7 @@ def profile_stream(snn: str, capacity: int, chunk_T: int, t_block: int,
         worker.submit(StreamRequest(rid=rid, events=events[:, rid]))
     res = _measure(worker.step, dev, repeats)
     by_kernel = res.pop("by_kernel")
+    res.pop("by_range")
     sd_ms = []
     for _ in range(repeats):
         t0 = time.perf_counter()
@@ -214,6 +261,7 @@ def profile_float_forward(repeats: int, device=None, snn: str = "gesture") -> di
         res = _measure(lambda: run_snn(params, events, net, QuantSpec(4),
                                        record_spikes=True), dev, repeats)
     by_kernel = res.pop("by_kernel")
+    res.pop("by_range")
     total = sum(us for _, us in by_kernel.values()) or 1.0
     b3 = [(n, us) for k, (n, us) in by_kernel.items() if "lif_gemm_f32" in k]
     return {"workload": "float_forward", "net": snn, "hw": list(hw), "T": 10,
@@ -227,7 +275,8 @@ def main(argv=None) -> None:
                                  description=__doc__.split("\n\n")[0])
     what = ap.add_mutually_exclusive_group(required=True)
     what.add_argument("--snn", choices=["gesture", "optical-flow"])
-    what.add_argument("--arch", help="an LM (ported: rwkv6-7b), at full width")
+    what.add_argument("--arch", help="an LM at full width (any of the reference's "
+                                     "ten, e.g. rwkv6-7b, chameleon-34b)")
     what.add_argument("--float-forward", choices=["gesture", "optical-flow"],
                       dest="float_forward",
                       help="the float forward at full width: the quickstart's "

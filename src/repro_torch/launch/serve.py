@@ -2,6 +2,8 @@
 
     python -m repro_torch.launch.serve --arch rwkv6-7b --requests 8 --capacity 4 --prompt-len 64
     python -m repro_torch.launch.serve --arch rwkv6-7b --reduced --device cpu
+    python -m repro_torch.launch.serve --arch chameleon-34b --requests 8 --capacity 4 --prompt-len 64
+    python -m repro_torch.launch.serve --arch zamba2-7b --reduced --device cpu
     python -m repro_torch.launch.serve --snn gesture --requests 8 --capacity 4
     python -m repro_torch.launch.serve --snn optical-flow --requests 2 --capacity 2 --t-block 5
     python -m repro_torch.launch.serve --snn gesture --torch --device cpu
@@ -9,13 +11,18 @@
     python -m repro_torch.launch.serve --snn gesture --streaming --device cpu --metrics-out m.prom --trace-out t.json
     python -m repro_torch.launch.serve --snn gesture --streaming --replicas 2 --requests 12
 
-LM (``--arch``): the model with random weights from a fixed seed, at its
-full published width unless ``--reduced`` asks for the CPU-sized config
-(the reference's ``--reduced`` is always on; here it is opt-in).  A
-:class:`Server` does continuous batching with slot reuse: one prefill per
-admitted request (the wkv kernel B7 in every layer on the card), then one
-batched decode step per tick over every slot, idle slots riding along.
-Only ``rwkv6-7b`` (the ``ssm`` family) is ported.
+LM (``--arch``, any of the reference's ten: ``qwen1.5-0.5b``,
+``starcoder2-3b``, ``qwen3-14b``, ``stablelm-3b``, ``rwkv6-7b``,
+``granite-moe-3b-a800m``, ``moonshot-v1-16b-a3b``, ``musicgen-large``,
+``chameleon-34b``, ``zamba2-7b``): the model with random weights from a
+fixed seed (``init_serving_params``: bfloat16 serving copies, never the
+float32 masters), at its full published width unless ``--reduced`` asks
+for the CPU-sized config (the reference's ``--reduced`` is always on; here
+it is opt-in).  A :class:`Server` does continuous batching with slot
+reuse: one prefill per admitted request (for rwkv6-7b the wkv kernel B7 in
+every layer on the card), then one batched decode step per tick over every
+slot, idle slots riding along.  As in the reference, the decode step takes
+one ``len`` for the whole batch, the longest slot's (ROADMAP C13).
 
 SNN (``--snn``): the paper's Table II network at full width with random
 weights from a fixed seed.  One ``DeployTarget`` declares the precision,
@@ -49,7 +56,7 @@ import torch
 
 from .. import obs, resolve_device, spidr
 from ..configs import spidr_gesture, spidr_optflow
-from ..configs.base import get_config
+from ..configs.base import get_config, list_archs
 from ..core.network import init_params
 from ..models import model as M
 from ..models.transformer import init_decode_state
@@ -79,11 +86,19 @@ class Server:
     """Fixed-capacity continuous-batching LM server (the reference's).
 
     Runs on the device of ``params`` (pass :func:`models.model.serving_params`
-    to skip the per-call weight casts).  ``use_kernel`` picks the prefill's
-    wkv route: None is the CUDA kernel on the card.  ``prefill_seconds`` and
-    ``decode_seconds`` add up the host-clock time of the prefills and of
-    the decode steps; each ends in the argmax's copy to the host, which
-    waits for the device.
+    or :func:`models.model.init_serving_params` to skip the per-call weight
+    casts).  ``use_kernel`` picks the ssm family's wkv route: None is the
+    CUDA kernel on the card.  ``prefill_seconds`` and ``decode_seconds``
+    add up the host-clock time of the prefills and of the decode steps;
+    each ends in the argmax's copy to the host, which waits for the device.
+    For the MoE family ``drop_fractions`` holds each decode step's
+    ``drop_fraction``, averaged over layers.
+
+    A request's prefill state goes into its slot on each leaf's batch axis
+    (the hybrid's grouped Mamba2 states on axis 2; the reference's server
+    assumes axis 1 and loses them, ROADMAP C12).  The decode step's ``len``
+    is the longest slot's, for every slot, as in the reference (ROADMAP
+    C13): a shorter slot's token sees that position and the rows up to it.
     """
 
     def __init__(self, cfg, params, capacity: int = 8, ctx_len: int = 256,
@@ -91,11 +106,12 @@ class Server:
         self.cfg, self.params = cfg, params
         self.capacity, self.ctx_len = capacity, ctx_len
         self.device = params["embed"].device
-        self.decode_step = M.make_decode_step(cfg)
+        self.decode_step = M.make_decode_step(cfg, return_aux=True)
         self.prefill = M.make_prefill_step(cfg, use_kernel=use_kernel)
         # Batched cache: slot i belongs to active request i (or is empty).
-        # Its token-shift rows are kept in the compute dtype (bfloat16 as
-        # served, the reference's; float32 when the model computes in it).
+        # Its activation-dtype leaves (K/V, token shifts, conv states) are
+        # kept in the compute dtype (bfloat16 as served, the reference's;
+        # float32 when the model computes in it).
         self.cache = init_decode_state(cfg, capacity, ctx_len, dtype=M.COMPUTE_DTYPE,
                                        device=self.device)
         self.slots: list = [None] * capacity
@@ -107,6 +123,7 @@ class Server:
         self.decode_steps = 0
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
+        self.drop_fractions: list = []
 
     def submit(self, req: Request) -> None:
         req.submitted_at = time.monotonic()
@@ -126,16 +143,25 @@ class Server:
                 self.prefill_seconds += time.perf_counter() - t0
                 req.generated.append(tok)
                 req.first_token_at = time.monotonic()
-                self._copy_into_slot(i, cache1)
+                self._copy_into_slot(i, cache1, len(req.prompt))
                 self.slots[i] = req
                 self.slot_len[i] = len(req.prompt)
                 self.next_tok[i, 0] = tok
 
-    def _copy_into_slot(self, i: int, cache1: dict) -> None:
-        """The prefill's layer-stacked state (L, 1, ...) into slot i."""
-        for key in ("x_tm", "x_cm", "s"):
-            dst = self.cache[key]
-            dst[:, i:i + 1] = cache1[key].to(dst.dtype)
+    def _copy_into_slot(self, i: int, cache1: dict, plen: int) -> None:
+        """The prefill's state (batch 1) into slot i: K/V rows ``[:plen]``
+        of every layer (rows past it keep what was there), the recurrent
+        states whole."""
+        for key, dst in self.cache.items():
+            if key == "len":
+                continue
+            src = cache1[key].to(dst.dtype)
+            if key in ("k", "v"):             # (L or G, B, Hkv, S, hd)
+                dst[:, i, :, :plen] = src[:, 0]
+            elif key.startswith("group_"):    # (G, per_group, B, ...)
+                dst[:, :, i] = src[:, :, 0]
+            else:                             # (L or tail, B, ...)
+                dst[:, i] = src[:, 0]
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -148,11 +174,13 @@ class Server:
         self.cache["len"] = torch.tensor(int(self.slot_len.max()), dtype=torch.int32,
                                          device=self.device)
         tokens = torch.as_tensor(self.next_tok, device=self.device)
-        logits, self.cache = self.decode_step(self.params, self.cache,
-                                              {"tokens": tokens})
+        logits, self.cache, aux = self.decode_step(self.params, self.cache,
+                                                   {"tokens": tokens})
         toks = torch.argmax(logits, dim=-1).cpu().numpy()
         self.decode_steps += 1
         self.decode_seconds += time.perf_counter() - t0
+        if "drop_fraction" in aux:
+            self.drop_fractions.append(float(aux["drop_fraction"]))
         for i in active:
             req = self.slots[i]
             tok = int(toks[i])
@@ -173,7 +201,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--snn", choices=["gesture", "optical-flow"],
                     help="which paper network serves the event streams")
     ap.add_argument("--arch", default=None,
-                    help="serve an LM instead (ported: rwkv6-7b)")
+                    help="serve an LM instead (any of the reference's ten, "
+                         "e.g. qwen1.5-0.5b, chameleon-34b, zamba2-7b)")
     ap.add_argument("--reduced", action="store_true",
                     help="LM: the CPU-sized config of the same family instead "
                          "of the full published width (the reference's "
@@ -243,24 +272,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
     if (args.snn is None) == (args.arch is None):
-        ap.error("give one of --snn (event streams) or --arch (LM serving; "
-                 "ROADMAP.md A12 ports the LM stack: rwkv6-7b so far)")
+        ap.error("give one of --snn (event streams) or --arch (LM serving: "
+                 f"one of {', '.join(list_archs())})")
     if args.arch is not None:
-        try:
-            get_config(args.arch)
-        except (KeyError, NotImplementedError) as e:
-            ap.error(str(e).strip("'\""))
+        if args.arch not in list_archs():
+            ap.error(f"unknown LM arch {args.arch!r}; available: "
+                     f"{', '.join(list_archs())}")
     return args
 
 
 def serve_lm(args: argparse.Namespace) -> Server:
-    """Random-weight LM (seed 0), ``args.requests`` random prompts (seed 0)."""
+    """Random-weight LM (seed 0; bfloat16 serving copies drawn layer by
+    layer), ``args.requests`` random prompts (seed 0)."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    params = M.serving_params(M.init_params(
-        torch.Generator(device=dev).manual_seed(0), cfg))
+    params = M.init_serving_params(torch.Generator(device=dev).manual_seed(0), cfg)
     # A slot's context: the reference's 64, or enough for the prompt and
     # every new token (the reference's fixed 64 cuts longer requests short).
     ctx_len = max(64, args.prompt_len + args.max_new + 1)

@@ -17,7 +17,7 @@ losses, the round trips, the host seconds and the CUDA kernel launches
 goes to stdout.  ``--reduced`` trains at 32x32 (gesture) or 24x32 (flow)
 and T=5, as the reference.
 
-The LM path of the reference (``--arch``) is ROADMAP A12.
+The LM path of the reference (``--arch``) is ROADMAP A12.2.
 """
 from __future__ import annotations
 
@@ -104,7 +104,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train",
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=None,
-                    help="spidr-gesture / spidr-optical-flow (LM archs: ROADMAP A12)")
+                    help="spidr-gesture / spidr-optical-flow (LM archs: ROADMAP A12.2)")
     ap.add_argument("--snn", choices=("gesture", "optical-flow"), default=None,
                     help="train one of the paper's SNNs through the "
                          "train->export->deploy QAT pipeline")
@@ -128,7 +128,7 @@ def main(argv=None) -> int:
     if args.snn is None and not args.arch.startswith("spidr-"):
         raise NotImplementedError(
             f"--arch {args.arch}: training the LM stack is not ported "
-            "(ROADMAP A12); --snn gesture|optical-flow trains the paper's SNNs")
+            "(ROADMAP A12.2); --snn gesture|optical-flow trains the paper's SNNs")
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
     print(json.dumps(train_snn(args)), flush=True)

@@ -1,8 +1,14 @@
-"""The LM stack: the ``ssm`` family (RWKV6) for prefill and decode.
+"""The LM stack: every family of the reference, for prefill and decode.
 
-    common       rmsnorm and the initializers
+    common       rmsnorm, RoPE, the initializers and the next-token loss
+    attention    GQA attention: chunked online-softmax prefill, cached decode
+    ffn          SwiGLU / GELU FFN
+    moe          top-k token-choice MoE (single-device path)
+    mamba2       Mamba2 (SSD): chunked prefill, recurrent decode
     rwkv6        time-mix (chunked wkv: the CUDA kernel B7 on the card) and
                  channel-mix, full-sequence and single-token forms
-    transformer  the layer loop over layer-stacked parameters
-    model        init_params, forward, the prefill and decode steps
+    transformer  the layer loop over layer-stacked parameters (dense, audio,
+                 vlm, moe, ssm and hybrid families)
+    model        init_params / init_serving_params, forward, the prefill
+                 and decode steps
 """

@@ -17,7 +17,7 @@ under the reference's keys:
 
 ``CompiledSNN.roofline`` prices a deployment through it.  The HLO half of
 the reference's module (``parse_hlo``, ``analyze_compiled``) is ROADMAP
-A12's.
+A12.3's.
 """
 from __future__ import annotations
 

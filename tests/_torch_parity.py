@@ -29,6 +29,7 @@ def jax_ref():
         from repro import analysis, compiler, spidr, serving
         from repro.analysis import __main__ as analysis_cli
         from repro.checkpoint import checkpoint
+        from repro import configs as lm_config_pkg
         from repro.configs import base as lm_configs
         from repro.configs import spidr_gesture, spidr_optflow
         from repro.core import (cim_macro, energy, layers, modes, network, neuron,
@@ -37,8 +38,12 @@ def jax_ref():
         from repro.kernels import (autotune, fused_lif_gemm, lif_step, quant_matmul,
                                    ref, spike_gemm, wkv_chunk)
         from repro.launch import serve as lm_serve
+        from repro.models import attention as lm_attention
         from repro.models import common as lm_common
+        from repro.models import ffn as lm_ffn
+        from repro.models import mamba2 as lm_mamba2
         from repro.models import model as lm_model
+        from repro.models import moe as lm_moe
         from repro.models import rwkv6, transformer
         from repro.optim import optimizer
         from repro.obs import logs as obs_logs
@@ -56,7 +61,9 @@ def jax_ref():
         spike_gemm=spike_gemm, lif_step=lif_step, modes=modes, energy=energy,
         pipeline=pipeline, cost=cost, cim_macro=cim_macro,
         spidr_gesture=spidr_gesture, spidr_optflow=spidr_optflow,
-        lm_configs=lm_configs, lm_common=lm_common, rwkv6=rwkv6,
+        lm_configs=lm_configs, lm_config_pkg=lm_config_pkg, lm_common=lm_common,
+        rwkv6=rwkv6, lm_attention=lm_attention, lm_ffn=lm_ffn, lm_moe=lm_moe,
+        lm_mamba2=lm_mamba2,
         transformer=transformer, lm_model=lm_model, wkv_chunk=wkv_chunk,
         quant_matmul=quant_matmul, lm_serve=lm_serve, compiler=compiler,
         s2a=s2a, zero_skip=zero_skip, timeline=timeline, export=export,

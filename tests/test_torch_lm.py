@@ -78,18 +78,24 @@ def test_config_registry():
     assert cfg.head_dim_ == 64 and cfg.padded_vocab == 65536
     assert isinstance(cfg.reduced(), ArchConfig) and cfg.reduced().n_layers == 2
     assert "zamba2-7b" in list_archs() and "spidr-gesture" in list_archs(False)
-    with pytest.raises(NotImplementedError, match="A12"):
-        get_config("qwen1.5-0.5b")
+    for name in list_archs():  # every registry LM resolves
+        assert isinstance(get_config(name), ArchConfig) and get_config(name).name == name
     with pytest.raises(KeyError):
         get_config("gpt-5")
     assert get_config("spidr-gesture").name
 
 
-def test_other_families_raise():
-    cfg = ArchConfig(name="x", family="dense", n_layers=1, d_model=64, n_heads=4,
-                     n_kv_heads=4, d_ff=128, vocab_size=256)
-    with pytest.raises(NotImplementedError, match="A12"):
-        M.init_params(torch.Generator().manual_seed(0), cfg)
+def test_every_family_inits():
+    for family, extra in (("dense", {}), ("audio", {"ffn_variant": "gelu"}),
+                          ("vlm", {"qk_norm": True}),
+                          ("moe", {"n_experts": 4, "top_k": 2, "d_ff": 32}),
+                          ("hybrid", {"n_layers": 7, "attn_period": 3, "ssm_state": 16})):
+        kw = dict(name="x", family=family, n_layers=1, d_model=64, n_heads=4,
+                  n_kv_heads=4, d_ff=128, vocab_size=256)
+        kw.update(extra)
+        cfg = ArchConfig(**kw)
+        params = M.init_params(torch.Generator().manual_seed(0), cfg)
+        assert params["embed"].shape == (256, 64) and params["blocks"], family
 
 
 def test_config_matches_reference(jax_ref):

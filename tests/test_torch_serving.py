@@ -162,8 +162,8 @@ def test_deploy_target_validation():
 
 @pytest.mark.parametrize("argv,item", [
     (["--snn", "gesture", "--jnp"], "--torch"),
-    (["--arch", "qwen1.5-0.5b"], "A12"),
-    ([], "A12"),
+    (["--arch", "gpt-5"], "unknown LM arch"),
+    ([], "--arch"),
 ])
 def test_cli_rejects_unported_flags_by_name(capsys, argv, item):
     with pytest.raises(SystemExit) as e:
