@@ -150,8 +150,32 @@ Phases, each printing JSON lines:
                 12, 8, 40 tokens at capacity 2) served on both with equal
                 tokens except at a near tie of the CPU's top-2 gap (by the
                 same bound)
- 11. a ``kernels`` line: launches on phases 3-6, 6c, 6d and 8, max error, kernel /
-     plain / bound / library times per kernel
+ 11. lm train   (ROADMAP A12.2; B1-B6 must not launch, B7 launches in the
+                forward and the remat recompute of every rwkv6 layer) (a)
+                qwen1.5-0.5b at full published width and depth, float32
+                masters from seed 0: one ``accum_steps=2`` step against
+                ``accum_steps=1`` from the same params and batch (loss rtol
+                1e-3; params rtol 2e-2, atol 2.5e-3: the reference's
+                ``tests/test_grad_accum.py``), then 12 steps of the token
+                pipeline (batch 8, 128 tokens, lr 1e-3) through
+                ``TrainingLoop`` with a checkpoint every 6 steps in a temp
+                directory; step 6 runs and then fails once
+                (``RestartableFailure``): restarts == 1, every loss finite,
+                the last below the first; host ms per step, peak GB.  (b)
+                rwkv6-7b at full width, 12 of 32 layers: 3 steps, B7 exactly
+                24 launches per step.  (c) granite-moe-3b-a800m at full
+                width, 16 of 32 layers: 3 steps, every metric finite, the
+                MoE layers' drop fraction.  Then, after the launch counts
+                are read: rwkv6-7b at 4 layers in float32 compute, one
+                batch's gradients through B7 (``_WkvSequenceTrain``) and
+                through the plain wkv, every leaf within 1e-3 of its
+                largest; (d) each of the ten ``reduced()`` configs, one
+                train step from the same params and batch on the card and
+                on the CPU (float32 compute, TF32 off): loss and grad_norm
+                within 1e-4 relative, every gradient leaf within 1e-3 of
+                its largest
+ 12. a ``kernels`` line: launches on phases 3-6, 6c, 6d, 8 and 11, max error,
+     kernel / plain / bound / library times per kernel
 
 then the card's name and power limit (nvidia-smi) and, last, the line
 ``{"ok": true, "device": {...}}``.  Any mismatch, a kernel that does not
@@ -337,6 +361,14 @@ def main() -> int:
     phase_lm_families(torch, dev, card)
     moved = {k: n for k, n in kernels.LAUNCHES.items() if n}
     check(not moved, f"lm_families: the LM families launched kernels {moved}")
+    kernels.reset_launches()
+    train_runs = phase_lm_train(torch, dev, kernels)
+    phase_launches = dict(kernels.LAUNCHES)
+    launches = {k: n + phase_launches[k] for k, n in launches.items()}
+    emit({"phase": "launches", "paths": "all of the above + lm_train",
+          "lm_train": phase_launches, "launches": launches})
+    check_lm_train(torch, dev, card, train_runs, phase_launches)
+    del train_runs
     for name in KERNEL_INFO:
         check(launches[name] > 0, f"no path launched {name}")
     emit({"kernels": [dict(name=name, route="cuda", launches=launches[name],
@@ -3312,6 +3344,305 @@ def phase_lm_families(torch, dev, card) -> None:
     emit({"phase": "lm_families_card_vs_cpu", "card": card, "bound_rel": FAMILY_REL,
           "ragged_prompts": list(FAMILY_RAGGED), "capacity": 2, "archs": rows,
           "full_width_seconds": full_s, "seconds": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------------------
+# 11. lm_train (ROADMAP A12.2)
+# ---------------------------------------------------------------------------
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 128, 1e-3   # the reference CLI's batch and seq
+QWEN_TRAIN = {"steps": 12, "ckpt_every": 6, "fail_at": 6}
+CUT_TRAIN = {"rwkv6-7b": 12, "granite-moe-3b-a800m": 16}   # layers kept of 32
+CUT_STEPS = 3
+WKV_GRAD_LAYERS = 4        # the kernel-vs-plain gradient check's depth
+ACCUM_LOSS_RTOL = 1e-3     # tests/test_grad_accum.py's bounds
+ACCUM_PARAM_TOL = {"rtol": 2e-2, "atol": 2.5e-3}
+GRAD_LEAF_REL = 1e-3       # each gradient leaf, of its largest |gradient|
+CARD_CPU_REL = 1e-4        # loss and grad_norm, card against CPU (float32)
+
+
+def _clone_tree(tree):
+    from repro_torch.checkpoint import tree_flatten, tree_unflatten
+
+    return tree_unflatten(tree, [None if t is None else t.clone()
+                                 for t in tree_flatten(tree)])
+
+
+def _leaf_rel(got, want) -> float:
+    """Largest, over the gradient leaves, of max |got - want| over the
+    leaf's largest |want|."""
+    from repro_torch.checkpoint import tree_flatten
+
+    worst = 0.0
+    for a, b in zip(tree_flatten(got), tree_flatten(want)):
+        if b is not None:
+            top = float(b.abs().max())
+            worst = max(worst, float((a.to(b.device) - b).abs().max()) / (top or 1.0))
+    return worst
+
+
+def _train_batch(cfg, dev, step=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    from repro_torch.data import TokenPipeline
+
+    return TokenPipeline(batch, seq, cfg.vocab_size, seed=0, device=dev,
+                         embeds_dim=0 if cfg.embed_inputs else cfg.d_model).batch_at(step)
+
+
+def _train_qwen(torch, dev) -> dict:
+    """(a) qwen1.5-0.5b at full width and depth: ``accum_steps=2`` against 1
+    from the seed's params, then 12 steps through ``TrainingLoop`` with a
+    checkpoint every 6 steps; step 6 runs (the parameters move in place)
+    and then fails once, so the loop restores step 6's checkpoint and
+    replays it."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer, tree_flatten
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.runtime import LoopConfig, RestartableFailure, TrainingLoop
+
+    cfg = get_config("qwen1.5-0.5b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt = M.init_opt_state(params)
+    batch = _train_batch(cfg, dev)
+    p1, o1, m1 = M.make_train_step(cfg, lr=TRAIN_LR)(
+        _clone_tree(params), _clone_tree(opt), 0, batch)
+    p2, o2, m2 = M.make_train_step(cfg, lr=TRAIN_LR, accum_steps=2)(
+        _clone_tree(params), _clone_tree(opt), 0, batch)
+    accum_loss_rel = abs(float(m2["loss"]) - float(m1["loss"])) / abs(float(m1["loss"]))
+    accum_ok = all(torch.allclose(b, a, **ACCUM_PARAM_TOL)
+                   for a, b in zip(tree_flatten(p1), tree_flatten(p2)) if a is not None)
+    accum_worst = max(float(((b - a).abs() - ACCUM_PARAM_TOL["rtol"] * a.abs()).max())
+                      for a, b in zip(tree_flatten(p1), tree_flatten(p2)) if a is not None)
+    del p1, o1, p2, o2
+    _free(torch)
+
+    step_fn = M.make_train_step(cfg, lr=TRAIN_LR)
+    failed, host_ms, grad_norms = [], [], []
+
+    def flaky(p, o, step, b):
+        out = step_fn(p, o, step, b)
+        if step == QWEN_TRAIN["fail_at"] and not failed:
+            failed.append(float(out[2]["loss"]))
+            raise RestartableFailure(f"injected after step {step}")
+        return out
+
+    def on_metrics(step, metrics, dt):
+        host_ms.append(dt * 1e3)
+        grad_norms.append(float(metrics["grad_norm"]))
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_lm_train_")
+    pipe = TokenPipeline(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, seed=0, device=dev)
+    try:
+        loop = TrainingLoop(flaky, pipe.batch_at, Checkpointer(ckdir),
+                            LoopConfig(total_steps=QWEN_TRAIN["steps"],
+                                       checkpoint_every=QWEN_TRAIN["ckpt_every"],
+                                       log_every=1000),
+                            metrics_cb=on_metrics)
+        t0 = time.perf_counter()
+        params, opt, history = loop.run(params, opt)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        saved = sorted(os.listdir(ckdir))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return {"arch": cfg.name, "layers": cfg.n_layers, "params": cfg.param_count(),
+            "loss_first": history[0], "loss_last": history[-1],
+            "history": history, "restarts": loop.restarts, "checkpoints": saved,
+            "failed_step_loss": failed[0] if failed else None,
+            "grad_norms": grad_norms, "host_ms": host_ms, "seconds": seconds,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "accum_loss_rel": accum_loss_rel, "accum_params_ok": accum_ok,
+            "accum_worst_excess": accum_worst}
+
+
+def _drop_fractions():
+    """Record every MoE layer's drop fraction while the block is open."""
+    import contextlib
+
+    from repro_torch.models import transformer
+
+    @contextlib.contextmanager
+    def recording():
+        real, fracs = transformer.moe_forward, []
+
+        def wrapped(*args, **kwargs):
+            out, aux = real(*args, **kwargs)
+            fracs.append(aux["drop_fraction"].detach())
+            return out, aux
+
+        transformer.moe_forward = wrapped
+        try:
+            yield fracs
+        finally:
+            transformer.moe_forward = real
+
+    return recording()
+
+
+def _train_cut(torch, dev, kernels, name) -> dict:
+    """(b), (c): the arch at full width with its depth cut, ``CUT_STEPS``
+    train steps of the reference CLI's batch; per step the loss, the
+    metrics, host ms (synchronized), peak GB, B7 launches and (MoE) the
+    mean drop fraction."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=CUT_TRAIN[name])
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt = M.init_opt_state(params)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    step_fn = M.make_train_step(cfg, lr=TRAIN_LR)
+    steps = []
+    for step in range(CUT_STEPS):
+        batch = _train_batch(cfg, dev, step)
+        before = kernels.LAUNCHES["wkv_sequence"]
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _drop_fractions() as fracs:
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, step, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        row = {"step": step, "loss": loss, "host_ms": ms,
+               "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "b7_launches": kernels.LAUNCHES["wkv_sequence"] - before,
+               "metrics": {k: float(v) for k, v in metrics.items()}}
+        if fracs:
+            row["drop_fraction"] = float(torch.stack(fracs).mean())
+        steps.append(row)
+    del params, opt
+    _free(torch)
+    return {"arch": name, "layers": cfg.n_layers, "layers_published": full.n_layers,
+            "d_model": cfg.d_model, "params": cfg.param_count(), "init_s": init_s,
+            "steps": steps}
+
+
+def phase_lm_train(torch, dev, kernels) -> dict:
+    """Phase 11 (ROADMAP A12.2): the main path's training runs; every
+    comparison waits for ``check_lm_train``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"qwen": _train_qwen(torch, dev)}
+    _free(torch)
+    for name in CUT_TRAIN:
+        out[name] = _train_cut(torch, dev, kernels, name)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _wkv_grad_check(torch, dev) -> dict:
+    """(b) rwkv6-7b at full width, ``WKV_GRAD_LAYERS`` layers, float32
+    compute: one batch's gradients through B7 (under ``_WkvSequenceTrain``)
+    and through the plain wkv, from the same params."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), n_layers=WKV_GRAD_LAYERS)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = _train_batch(cfg, dev)
+    M.COMPUTE_DTYPE = torch.float32
+    try:
+        lk, _, gk = M.loss_and_grads(cfg, params, batch, use_kernel=True)
+        lp, _, gp = M.loss_and_grads(cfg, params, batch, use_kernel=False)
+    finally:
+        M.COMPUTE_DTYPE = torch.bfloat16
+    worst = _leaf_rel(gk, gp)
+    del params, gk, gp
+    _free(torch)
+    return {"layers": cfg.n_layers, "loss_kernel": float(lk), "loss_plain": float(lp),
+            "grad_leaf_rel": worst}
+
+
+def _card_vs_cpu_step(torch, dev, name) -> dict:
+    """(d) the reduced config, the same params and batch, one train step on
+    the card and on the CPU, float32 compute."""
+    from repro_torch.checkpoint import tree_flatten
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer
+
+    cfg = get_config(name).reduced()
+    cpu = M.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = _train_batch(cfg, "cpu", batch=2, seq=32)
+    res = {}
+    M.COMPUTE_DTYPE = torch.float32
+    try:
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            params = _to_device(cpu, d) if where == "card" else _clone_tree(cpu)
+            b = {k: v.to(d) for k, v in batch.items()}
+            loss, _, grads = M.loss_and_grads(cfg, params, b)
+            gnorm = float(optimizer.global_norm(tree_flatten(grads)))
+            _, _, metrics = M.make_train_step(cfg, lr=TRAIN_LR)(
+                params, M.init_opt_state(params), 0, b)
+            res[where] = (float(loss), gnorm, grads, {k: float(v) for k, v in metrics.items()})
+    finally:
+        M.COMPUTE_DTYPE = torch.bfloat16
+    (lc, nc, gc, mc), (lg, ng, gg, mg) = res["cpu"], res["card"]
+    return {"arch": name, "loss_rel": abs(lg - lc) / abs(lc),
+            "grad_norm_rel": abs(ng - nc) / abs(nc),
+            "step_loss_rel": abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]),
+            "step_grad_norm_rel": abs(mg["grad_norm"] - mc["grad_norm"]) / abs(mc["grad_norm"]),
+            "grad_leaf_rel": _leaf_rel(gg, gc), "metrics": sorted(mg)}
+
+
+def check_lm_train(torch, dev, card, runs, launches: dict) -> None:
+    """Phase 11's checks, after its launches were read: the runs' losses
+    and launches, then the comparisons (which launch B7 again)."""
+    import math
+
+    from repro_torch.configs.base import list_archs
+
+    moved = {k: n for k, n in launches.items() if n and k != "wkv_sequence"}
+    check(not moved, f"lm_train: B1-B6 launched {moved}")
+    q = runs["qwen"]
+    check(all(math.isfinite(x) for x in q["history"]), f"lm_train qwen: loss {q['history']}")
+    check(q["history"][-1] < q["history"][0], f"lm_train qwen: loss did not fall "
+          f"({q['history'][0]} -> {q['history'][-1]})")
+    check(q["restarts"] == 1, f"lm_train qwen: {q['restarts']} restarts, expected 1")
+    check(len(q["history"]) == QWEN_TRAIN["steps"], "lm_train qwen: steps")
+    check(q["accum_loss_rel"] <= ACCUM_LOSS_RTOL and q["accum_params_ok"],
+          f"lm_train qwen: accum_steps=2 against 1: loss rel {q['accum_loss_rel']}, "
+          f"params within bounds {q['accum_params_ok']} ({q['accum_worst_excess']})")
+    emit({"phase": "lm_train_qwen", "card": card, **q})
+    total_b7 = 0
+    for name in CUT_TRAIN:
+        r = runs[name]
+        for st in r["steps"]:
+            check(all(math.isfinite(v) for v in st["metrics"].values()),
+                  f"lm_train {name}: step {st['step']} metrics {st['metrics']}")
+            want = 2 * r["layers"] if name == "rwkv6-7b" else 0
+            check(st["b7_launches"] == want, f"lm_train {name}: step {st['step']} launched "
+                  f"B7 {st['b7_launches']} times, expected {want}")
+            total_b7 += st["b7_launches"]
+        emit({"phase": "lm_train_cut", "card": card,
+              "cut": f"n_layers {r['layers_published']} -> {r['layers']}", **r})
+    check(launches["wkv_sequence"] == total_b7,
+          f"lm_train: B7 launched {launches['wkv_sequence']} times, the steps {total_b7}")
+    t0 = time.perf_counter()
+    wkv = _wkv_grad_check(torch, dev)
+    check(wkv["grad_leaf_rel"] <= GRAD_LEAF_REL, f"lm_train rwkv6-7b: kernel-route "
+          f"gradients differ from the plain route's: {wkv}")
+    rows = [_card_vs_cpu_step(torch, dev, name) for name in list_archs()]
+    for r in rows:
+        check(max(r["loss_rel"], r["grad_norm_rel"], r["step_loss_rel"],
+                  r["step_grad_norm_rel"]) <= CARD_CPU_REL
+              and r["grad_leaf_rel"] <= GRAD_LEAF_REL,
+              f"lm_train {r['arch']} reduced: card against CPU {r}")
+    emit({"phase": "lm_train_check", "card": card, "wkv_grad": wkv,
+          "grad_leaf_rel_bound": GRAD_LEAF_REL, "card_vs_cpu_rel_bound": CARD_CPU_REL,
+          "card_vs_cpu": rows, "seconds": time.perf_counter() - t0})
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ Layout: <dir>/step_<n>/
 The same layout as ``repro.checkpoint``, so a checkpoint written by either
 package restores in the other:
 
-  * LEAF ORDER — a tree of dicts, lists and tuples is flattened as
+  * LEAF ORDER — a tree of dicts, lists and tuples (NamedTuples too: the
+    LM's parameter groups) is flattened as
     ``jax.tree.flatten(tree, is_leaf=lambda x: x is None)`` flattens it:
     lists and tuples in order, dict keys *sorted*, ``None`` a leaf of its
     own (no file, ``null`` in the manifest).  ``{"w_q", "scale",
@@ -40,7 +41,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-__all__ = ["CheckpointError", "Checkpointer", "FORMAT_VERSION"]
+__all__ = ["CheckpointError", "Checkpointer", "FORMAT_VERSION", "tree_flatten",
+           "tree_unflatten"]
 
 # Bump when the on-disk layout changes incompatibly.  restore() refuses
 # checkpoints stamped with a newer version; version-0 checkpoints
@@ -52,26 +54,30 @@ class CheckpointError(ValueError):
     """A checkpoint failed validation (corrupt, truncated, or wrong version)."""
 
 
-def _flatten(tree: Any) -> list:
+def tree_flatten(tree: Any) -> list:
     """Leaves in the reference's order (dict keys sorted, ``None`` a leaf)."""
     if tree is None:
         return [None]
     if isinstance(tree, dict):
-        return [leaf for key in sorted(tree) for leaf in _flatten(tree[key])]
+        return [leaf for key in sorted(tree) for leaf in tree_flatten(tree[key])]
     if isinstance(tree, (list, tuple)):
-        return [leaf for item in tree for leaf in _flatten(item)]
+        return [leaf for item in tree for leaf in tree_flatten(item)]
     return [tree]
 
 
-def _unflatten(like: Any, leaves) -> Any:
-    """``like``'s structure filled with ``leaves`` (an iterator)."""
+def tree_unflatten(like: Any, leaves) -> Any:
+    """``like``'s structure filled with ``leaves``, in :func:`tree_flatten`'s
+    order (one iterator, shared by the recursion: ``iter`` of an iterator
+    is itself)."""
+    leaves = iter(leaves)
     if like is None:
         return next(leaves)
     if isinstance(like, dict):
-        filled = {key: _unflatten(like[key], leaves) for key in sorted(like)}
+        filled = {key: tree_unflatten(like[key], leaves) for key in sorted(like)}
         return {key: filled[key] for key in like}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(item, leaves) for item in like)
+        items = [tree_unflatten(item, leaves) for item in like]
+        return type(like)(*items) if hasattr(like, "_fields") else type(like)(items)
     return next(leaves)
 
 
@@ -104,14 +110,14 @@ class Checkpointer:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any, extra_meta: Optional[dict] = None):
-        self._write(step, [_host(x) for x in _flatten(tree)], _describe(tree),
+        self._write(step, [_host(x) for x in tree_flatten(tree)], _describe(tree),
                     extra_meta or {})
 
     def save_async(self, step: int, tree: Any, extra_meta: Optional[dict] = None):
         self.wait()
         # Copy to host memory now (the caller may change the tensors next);
         # the disk writes happen in the thread.
-        host = [None if x is None else np.array(_host(x)) for x in _flatten(tree)]
+        host = [None if x is None else np.array(_host(x)) for x in tree_flatten(tree)]
         self._thread = threading.Thread(
             target=self._write, args=(step, host, _describe(tree), extra_meta or {}),
             daemon=True)
@@ -178,7 +184,7 @@ class Checkpointer:
                 f"{version}, but this build reads <= {FORMAT_VERSION} — "
                 "upgrade the code or re-save the checkpoint")
         manifest = meta.get("manifest") or [None] * meta["n_leaves"]
-        leaves_like = _flatten(like)
+        leaves_like = tree_flatten(like)
         if meta["n_leaves"] != len(leaves_like):
             raise ValueError(
                 f"pytree structure changed: checkpoint step {step} holds "
@@ -190,7 +196,7 @@ class Checkpointer:
                 continue
             out.append(self._read_leaf(step, path, i,
                                        manifest[i] if i < len(manifest) else None))
-        return _unflatten(like, iter(out))
+        return tree_unflatten(like, out)
 
     def _read_leaf(self, step: int, path: str, i: int, entry) -> np.ndarray:
         leaf_path = os.path.join(path, f"{i}.npy")

@@ -16,8 +16,9 @@ nested dicts whose block leaves sit in NamedTuples (``AttentionParams``,
 ``FFNParams``, ``MoEParams``, ``Mamba2Params``, ``RWKV6Params``), each leaf
 layer-stacked, with ``None`` for the leaves a config leaves out (biases,
 qk-norm scales, the GELU FFN's gate, the hybrid's missing tail).
-:func:`lm_params_from_jax` turns the same tree, with numpy leaves, into the
-port's (same keys, same field names, same layouts).
+The LM parameter tree, with numpy leaves, becomes the port's with
+:func:`lm_params_from_jax` (same keys, same field names, same layouts), and
+a train state ``(params, {"mu", "nu"})`` with :func:`lm_train_state_from_jax`.
 
 Nothing of JAX is imported: the caller hands over numpy arrays.
 """
@@ -28,7 +29,8 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["lm_params_from_jax", "params_from_jax", "train_state_from_jax"]
+__all__ = ["lm_params_from_jax", "lm_train_state_from_jax", "params_from_jax",
+           "train_state_from_jax"]
 
 
 def params_from_jax(np_params, device=None) -> list:
@@ -82,3 +84,13 @@ def lm_params_from_jax(np_tree, device=None):
         return torch.tensor(np.array(x), device=dev)
 
     return conv(np_tree)
+
+
+def lm_train_state_from_jax(np_params, np_opt_state, device=None):
+    """The LM train state of the reference (``init_params`` /
+    ``init_opt_state`` or a restored checkpoint; numpy leaves) -> the
+    port's ``(params, {"mu", "nu"})`` on ``device``, ready for
+    ``models.model.make_train_step``.  The moments have the parameters'
+    tree."""
+    return (lm_params_from_jax(np_params, device),
+            {k: lm_params_from_jax(np_opt_state[k], device) for k in ("mu", "nu")})

@@ -11,7 +11,9 @@ rebuilds and an unchanged one is reused.  :func:`build_all` starts one
 The wrappers' shared plumbing lives here too: :func:`bind` sets each C
 function's ``ctypes`` signature, :func:`kernel_device` picks the route
 (None for CPU tensors, which take the plain version; the CUDA device
-otherwise; anything else raises), :func:`check` validates an operand, and
+otherwise; anything else raises) and refuses, through :func:`no_detach`, a
+CUDA launch whose outputs autograd would lose, :func:`check` validates an
+operand, and
 :func:`raise_on` turns a non-zero ``cudaError_t`` into an exception.  The
 package's one launch counter is :data:`LAUNCHES`: per CUDA entry point,
 the kernel launches since :func:`reset_launches`.  Each wrapper adds one
@@ -34,7 +36,8 @@ import threading
 import torch
 
 __all__ = ["BuildError", "LAUNCHES", "bind", "build_all", "check", "count_launch",
-           "kernel_device", "load", "raise_on", "reset_launches", "sm_count"]
+           "kernel_device", "load", "no_detach", "raise_on", "reset_launches",
+           "sm_count"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -156,10 +159,29 @@ def bind(name: str, signatures: dict) -> dict:
     return fns
 
 
+def no_detach(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if grad mode is on and a tensor requires grad.
+
+    A kernel fills its outputs through ``ctypes``: they carry no
+    ``grad_fn``, so a gradient through them would silently be cut.  The
+    calls that pass are those with grad mode off, which includes the
+    forward of an autograd ``Function`` that supplies the backward
+    (``core.layers._FusedLifGemmTrain`` for B3,
+    ``models.rwkv6._WkvSequenceTrain`` for B7).
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel's outputs would carry no gradient, but an "
+            "input requires grad; call it under torch.no_grad() or through "
+            "its autograd Function")
+
+
 def kernel_device(what: str, *tensors: torch.Tensor):
     """None when every tensor lies on the CPU; else their CUDA device.
 
-    A tensor on any other device raises: there is no fallback.
+    A tensor on any other device raises: there is no fallback.  So does a
+    CUDA launch under grad (:func:`no_detach`); the plain version on CPU
+    tensors is differentiable and passes.
     """
     devices = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devices):
@@ -167,6 +189,7 @@ def kernel_device(what: str, *tensors: torch.Tensor):
     for d in devices:
         if d.type != "cuda":
             raise ValueError(f"{what} runs on CPU or CUDA tensors, got {d}")
+    no_detach(what, *tensors)
     return next(d for d in devices if d.type == "cuda")
 
 

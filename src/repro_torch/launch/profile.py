@@ -6,6 +6,8 @@
     python -m repro_torch.launch.profile --snn optical-flow --stream --batch 2 --chunk-T 5 --t-block 5 1
     python -m repro_torch.launch.profile --arch rwkv6-7b --prompt-len 512 --batch 4
     python -m repro_torch.launch.profile --arch moonshot-v1-16b-a3b --prompt-len 64 --batch 4
+    python -m repro_torch.launch.profile --arch qwen1.5-0.5b --train --batch 8
+    python -m repro_torch.launch.profile --arch rwkv6-7b --train --batch 8 --layers 12
     python -m repro_torch.launch.profile --float-forward gesture
     python -m repro_torch.launch.profile --float-forward optical-flow
 
@@ -23,6 +25,15 @@ seed, bfloat16 serving copies drawn layer by layer,
 ``init_serving_params``) and profiles one prefill of ``--prompt-len``
 tokens (one request, as the server admits them) and one decode step over
 ``--batch`` slots against a context of ``--prompt-len``.
+With ``--train``: the LM's train step instead (float32 masters from a
+fixed seed, ``--layers`` cutting the depth, ``--batch`` sequences of the
+train CLI's 128 tokens from the synthetic pipeline, remat on, in-place
+AdamW): ``--repeats`` steps
+on the host clock, one line each (host ms, peak GB, loss), then one more
+step under ``torch.profiler``, one line with its device ms, the busy
+share (device ms over the median host ms), and the shares of B7 (the wkv
+kernel), of B7's plain backward (``models.rwkv6._wkv_backward``), of
+AdamW (``optim.optimizer.adamw_inplace``) and of the matrix products.
 ``--float-forward gesture``: the quickstart's float
 forward (``run_snn(mode="train")`` on the gesture net at 64x64, T=10,
 batch 4, random weights and events from fixed seeds; one fused float
@@ -48,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import time
 
@@ -66,6 +78,11 @@ _GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "gemv")
 # ``transformer``'s names -> the profiler range their calls run in.
 _LM_RANGES = {"attention_forward": "attention", "decode_attention": "attention",
               "moe_forward": "moe"}
+TRAIN_SEQ = 128  # tokens per sequence of a profiled train step (the train CLI's)
+
+# Every profiler range label a profile reads (the train step adds B7's
+# plain backward and the in-place AdamW).
+_RANGE_LABELS = frozenset({*_LM_RANGES.values(), "wkv_backward", "adamw"})
 
 
 def _card(device):
@@ -86,6 +103,18 @@ def _measure(fn, dev, repeats: int) -> dict:
         fn()
         torch.cuda.synchronize(dev)
         host_ms.append((time.perf_counter() - t0) * 1e3)
+    res = _measure_once(fn, dev)
+    host_med = sorted(host_ms)[len(host_ms) // 2]
+    return {"card": res.pop("card"), "host_ms": host_ms, "host_ms_median": host_med,
+            **res, "device_busy_share": (res["device_ms"] / host_med
+                                         if res["device_ms"] is not None else None)}
+
+
+def _measure_once(fn, dev) -> dict:
+    """One run of ``fn`` under ``torch.profiler``: device ms, the kernels
+    by device time (``by_kernel``: name -> (launches, us)) and the
+    device time of each profiler range of ``_RANGE_LABELS``
+    (``by_range``)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
@@ -95,7 +124,7 @@ def _measure(fn, dev, repeats: int) -> dict:
     spans: dict = {}         # its span on the device timeline, where traced
     for e in prof.events():
         cuda = e.device_type == torch.autograd.DeviceType.CUDA
-        if e.name in _LM_RANGES.values():
+        if e.name in _RANGE_LABELS:
             into, us = (spans, e.time_range.elapsed_us()) if cuda else \
                 (kernel_sums, e.device_time_total)
             into[e.name] = into.get(e.name, 0.0) + us
@@ -104,13 +133,10 @@ def _measure(fn, dev, repeats: int) -> dict:
             by_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
     by_range = kernel_sums if any(kernel_sums.values()) else spans
     device_ms = sum(us for _, us in by_kernel.values()) / 1e3
-    host_med = sorted(host_ms)[len(host_ms) // 2]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
     return {
         "card": torch.cuda.get_device_name(dev),
-        "host_ms": host_ms, "host_ms_median": host_med,
         "device_ms": device_ms if by_kernel else None,
-        "device_busy_share": device_ms / host_med if by_kernel else None,
         "by_kernel": by_kernel, "by_range": by_range,
         "kernels": [{"name": name[:120], "launches": n, "ms": us / 1e3}
                     for name, (n, us) in top],
@@ -178,6 +204,69 @@ def profile_lm(arch: str, prompt_len: int, batch: int, repeats: int,
                     "attention_share": by_range.get("attention", 0.0) / total,
                     "moe_share": by_range.get("moe", 0.0) / total})
     return out
+
+
+def profile_lm_train(arch: str, batch: int, seq: int, repeats: int,
+                     n_layers: int | None = None, device=None) -> list:
+    """``repeats`` timed train steps of the LM, then one profiled step."""
+    from ..configs.base import get_config
+    from ..data.pipeline import TokenPipeline
+    from ..models import model as M
+    from ..models import rwkv6
+    from ..optim import optimizer
+
+    dev = _card(device)
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt_state = M.init_opt_state(params)
+    step_fn = M.make_train_step(cfg, lr=1e-3)
+    pipe = TokenPipeline(batch, seq, cfg.vocab_size, seed=0,
+                         embeds_dim=0 if cfg.embed_inputs else cfg.d_model, device=dev)
+    head = {"arch": arch, "workload": "train_step", "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": cfg.param_count(), "batch": batch,
+            "seq": seq, "card": torch.cuda.get_device_name(dev)}
+    state = {"params": params, "opt": opt_state, "step": 0}
+
+    def one():
+        state["params"], state["opt"], metrics = step_fn(
+            state["params"], state["opt"], state["step"], pipe.batch_at(state["step"]))
+        state["step"] += 1
+        return float(metrics["loss"])
+
+    rows, host = [], []
+    one()  # warm-up: kernel build and load, allocator
+    for _ in range(repeats):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss = one()
+        torch.cuda.synchronize(dev)
+        host.append((time.perf_counter() - t0) * 1e3)
+        rows.append({**head, "step": state["step"] - 1, "host_ms": host[-1], "loss": loss,
+                     "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    with _ranges(rwkv6, {"_wkv_backward": "wkv_backward"}), \
+            _ranges(optimizer, {"adamw_inplace": "adamw"}):
+        res = _measure_once(one, dev)
+    by_kernel, by_range = res.pop("by_kernel"), res.pop("by_range")
+    total = sum(us for _, us in by_kernel.values()) or 1.0
+    med = sorted(host)[len(host) // 2] if host else None
+
+    def share(pred):
+        return sum(us for k, (_, us) in by_kernel.items() if pred(k.lower())) / total
+
+    rows.append({**head, "step": state["step"] - 1, "profiled": True, **res,
+                 "device_busy_share": (res["device_ms"] / med
+                                       if med and res["device_ms"] else None),
+                 "host_ms_median": med,
+                 "b7_share": share(lambda k: "wkv_kernel" in k),
+                 "b7_launches": sum(n for k, (n, _) in by_kernel.items()
+                                    if "wkv_kernel" in k.lower()),
+                 "wkv_backward_share": by_range.get("wkv_backward", 0.0) / total,
+                 "adamw_share": by_range.get("adamw", 0.0) / total,
+                 "gemm_share": share(lambda k: any(s in k for s in _GEMM_NAMES))})
+    return rows
 
 
 def profile_run(snn: str, batch: int, t_block: int, repeats: int,
@@ -282,7 +371,8 @@ def main(argv=None) -> None:
                       help="the float forward at full width: the quickstart's "
                            "(gesture) or the optical-flow walk's")
     ap.add_argument("--batch", type=int, default=2,
-                    help="streams per run (--snn) or decode slots (--arch)")
+                    help="streams per run (--snn), decode slots (--arch) or "
+                         "sequences per step (--train)")
     ap.add_argument("--t-block", type=int, nargs="+", default=[1], dest="t_block")
     ap.add_argument("--n-cores", type=int, nargs="+", default=[1], dest="n_cores")
     ap.add_argument("--weight-bits", type=int, nargs="+", default=[4],
@@ -292,11 +382,19 @@ def main(argv=None) -> None:
     ap.add_argument("--chunk-T", type=int, default=2, dest="chunk_T",
                     help="--stream: timesteps per tick")
     ap.add_argument("--prompt-len", type=int, default=512, dest="prompt_len")
+    ap.add_argument("--train", action="store_true",
+                    help="--arch: profile the train step, not prefill and decode")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="--train: cut the depth to this many layers")
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
     if args.float_forward is not None:
         print(json.dumps(profile_float_forward(args.repeats, snn=args.float_forward)),
               flush=True)
+    elif args.arch is not None and args.train:
+        for row in profile_lm_train(args.arch, args.batch, TRAIN_SEQ, args.repeats,
+                                    n_layers=args.layers):
+            print(json.dumps(row), flush=True)
     elif args.arch is not None:
         for row in profile_lm(args.arch, args.prompt_len, args.batch, args.repeats):
             print(json.dumps(row), flush=True)

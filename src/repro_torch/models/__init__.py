@@ -1,4 +1,5 @@
-"""The LM stack: every family of the reference, for prefill and decode.
+"""The LM stack: every family of the reference, for training, prefill and
+decode.
 
     common       rmsnorm, RoPE, the initializers and the next-token loss
     attention    GQA attention: chunked online-softmax prefill, cached decode
@@ -9,6 +10,7 @@
                  channel-mix, full-sequence and single-token forms
     transformer  the layer loop over layer-stacked parameters (dense, audio,
                  vlm, moe, ssm and hybrid families)
-    model        init_params / init_serving_params, forward, the prefill
-                 and decode steps
+    model        init_params / init_serving_params, forward, the train
+                 step (init_opt_state, loss_and_grads, make_train_step),
+                 the prefill and decode steps
 """

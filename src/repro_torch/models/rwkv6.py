@@ -9,8 +9,10 @@ with a data-dependent per-channel decay ``w_t`` in (0,1)^N and bonus ``u``:
 Prefill uses the chunked parallel form: on the card the hand-written CUDA
 kernel B7 (``kernels/wkv_chunk.py``, one launch per layer for the whole
 sequence), elsewhere its plain PyTorch version (``kernels.ref``), which is
-also ``_wkv_chunked`` here: there is one plain wkv, not two.  Decode is
-the plain recurrence and needs no kernel.
+also ``_wkv_chunked`` here: there is one plain wkv, not two.  Under
+autograd the kernel route runs B7 in :class:`_WkvSequenceTrain`, whose
+backward differentiates the plain version.  Decode is the plain recurrence
+and needs no kernel.
 
 Dtypes follow the reference: the token shift (ddlerp), projections,
 channel-mix and ``ln_x`` run in ``x.dtype`` (bfloat16 when serving), the
@@ -146,8 +148,48 @@ def _wkv_chunked(r, k, v, lw, u, s0, chunk: int):
     return kref.wkv_sequence_ref(r, k, v, lw, u, s0, chunk)
 
 
+def _wkv_backward(chunk, inputs, needs, grads):
+    """Gradients of the plain wkv (``kernels.ref``) at ``inputs`` for the
+    ones ``needs`` marks, given the output cotangents ``grads`` (None where
+    an output got none)."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
+        outs = kref.wkv_sequence_ref(*xs, chunk)
+        outs, grads = zip(*[(o, g) for o, g in zip(outs, grads) if g is not None])
+        got = iter(torch.autograd.grad(outs, [x for x in xs if x.requires_grad], grads))
+    return [next(got) if n else None for n in needs]
+
+
+class _WkvSequenceTrain(torch.autograd.Function):
+    """The wkv on B7 (``wkv_sequence``) with a gradient.
+
+    Forward: the kernel, unchanged (on CPU tensors its plain version).
+    Backward: the plain ``wkv_sequence_ref`` recomputed on the saved inputs
+    and differentiated by autograd; no kernel launches.  The reference has
+    no backward kernel and its Pallas kernel cannot be differentiated
+    (ROADMAP C14), so the backward is plain by design, as B3's
+    (``core.layers._FusedLifGemmTrain``).
+    """
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, s0, chunk: int):
+        ctx.save_for_backward(r, k, v, lw, u, s0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return wkv_sequence(r, k, v, lw, u, s0, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, g_y, g_s):
+        grads = _wkv_backward(ctx.chunk, ctx.saved_tensors, ctx.needs_input_grad[:6],
+                              (g_y, g_s))
+        return (*grads, None)
+
+
 def _wkv_kernel_path(r, k, v, lw, u, s0, chunk: int):
-    """The wkv through the CUDA kernel B7 (its plain version on the CPU)."""
+    """The wkv through the CUDA kernel B7 (its plain version on the CPU);
+    under :class:`_WkvSequenceTrain` when autograd needs its gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, lw, u, s0)):
+        return _WkvSequenceTrain.apply(r, k, v, lw, u, s0, chunk)
     return wkv_sequence(r, k, v, lw, u, s0, chunk=chunk)
 
 

@@ -11,9 +11,15 @@ The counterpart of ``repro.models.transformer``:
 
 Parameters keep the reference's layer-stacked layout, ``(L, ...)`` per leaf
 (the hybrid's groups ``(G, per_group, ...)``); where the reference scans
-over layers, this module loops over them in Python, indexing each leaf (a
-view).  The sharding constraints and remat names of the reference are
-no-ops on one device and are left out.
+over layers, this module loops over them in Python.  The full-sequence
+forward unbinds each stacked leaf once (views whose gradient is one
+``stack``; indexing layer by layer would give every layer a full-size
+zero gradient to sum).  With ``remat`` it runs each layer body, and each
+application of the hybrid's shared block, under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` around its
+scanned bodies): only layer boundaries are kept for the backward, which
+recomputes the rest.  The sharding constraints and remat names of the
+reference are no-ops on one device and are left out.
 
 ``init_blocks(generator, cfg, cast)`` draws the attention, MoE and hybrid
 families layer by layer and passes every drawn leaf through
@@ -24,6 +30,7 @@ the ssm family draws each stacked leaf at once, as before.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import AttentionParams, attention_forward, decode_attention, init_attention
 from .common import rmsnorm
@@ -153,6 +160,21 @@ def _index(tree, i):
     return _map_tree(lambda g, f, t: t[i], tree)
 
 
+def _unstack(tree) -> list:
+    """The trees of ``tree[i]`` for every i of the leading axis, as views
+    from one ``unbind`` per leaf."""
+    parts = _map_tree(lambda g, f, t: t.unbind(0), tree)
+    n = len(next(_leaf_pairs(parts, parts))[0])
+    return [_map_tree(lambda g, f, p: p[i], parts) for i in range(n)]
+
+
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
 def layer(blocks: dict, i: int) -> dict:
     """Layer ``i`` of the stacked parameters (views, no copies); for the
     hybrid, group ``i``'s stacked Mamba2 layers."""
@@ -198,22 +220,22 @@ def _mamba_block(lp, h, state, cfg):
     return h + out, state_new
 
 
-def _mamba_stack(layers, n: int, h, cfg):
-    """``n`` stacked Mamba2 layers from a zero state; returns (h, (conv
-    states (n, B, K-1, C), ssm states (n, B, H, N, P)))."""
+def _mamba_stack(layers, h, cfg, remat=False):
+    """Stacked Mamba2 layers from a zero state; returns (h, (conv states
+    (n, B, K-1, C), ssm states (n, B, H, N, P)))."""
     b = h.shape[0]
     nh = cfg.d_inner // HEAD_P
     s0 = torch.zeros((b, nh, cfg.ssm_state, HEAD_P), dtype=torch.float32, device=h.device)
     conv, ssm = [], []
-    for j in range(n):
-        h, (c, s) = _mamba_block(_index(layers, j), h, (None, s0), cfg)
+    for lp in _unstack(layers):
+        h, (c, s) = _run(remat, _mamba_block, lp, h, (None, s0), cfg)
         conv.append(c)
         ssm.append(s)
     return h, (torch.stack(conv), torch.stack(ssm))
 
 
 def forward_blocks(blocks: dict, h: torch.Tensor, cfg, return_cache: bool = False,
-                   use_kernel: bool | None = None):
+                   use_kernel: bool | None = None, remat: bool = False):
     """Run all layers on h (B, S, D) from a zero state.
 
     Returns (h, aux, cache_or_None).  The attention families' cache holds
@@ -223,14 +245,15 @@ def forward_blocks(blocks: dict, h: torch.Tensor, cfg, return_cache: bool = Fals
     ``group_conv``/``group_ssm`` (G, per_group, B, ...), ``tail_conv``/
     ``tail_ssm`` (tail, B, ...; None without a tail) and the shared
     block's ``k``/``v`` per group (G, B, Hkv, S, hd).  ``use_kernel``
-    picks the ssm family's wkv route (None: the kernel on CUDA tensors).
+    picks the ssm family's wkv route (None: the kernel on CUDA tensors);
+    ``remat`` checkpoints each layer body (training).
     """
     fam = cfg.family
     if fam in ATTN_FAMILIES:
         lb = zl = 0.0
         kvs = []
-        for i in range(cfg.n_layers):
-            h, aux, kv = _attn_block(layer(blocks, i), h, cfg, return_cache)
+        for lp in _unstack(blocks["layers"]):
+            h, aux, kv = _run(remat, _attn_block, lp, h, cfg, return_cache)
             lb = lb + aux.get("load_balance_loss", 0.0)
             zl = zl + aux.get("router_z_loss", 0.0)
             kvs.append(kv)
@@ -248,8 +271,8 @@ def forward_blocks(blocks: dict, h: torch.Tensor, cfg, return_cache: bool = Fals
         x0 = h.new_zeros((b, d))
         s0 = torch.zeros((b, nh, n, n), dtype=torch.float32, device=h.device)
         states = []
-        for i in range(cfg.n_layers):
-            h, st = _rwkv_block(layer(blocks, i), h, (x0, x0, s0), cfg, use_kernel)
+        for lp in _unstack(blocks["layers"]):
+            h, st = _run(remat, _rwkv_block, lp, h, (x0, x0, s0), cfg, use_kernel)
             states.append(st)
         cache = None
         if return_cache:
@@ -260,9 +283,9 @@ def forward_blocks(blocks: dict, h: torch.Tensor, cfg, return_cache: bool = Fals
     if fam == "hybrid":
         n_groups, per_group, tail = zamba2_layout(cfg)
         g_conv, g_ssm, ks, vs = [], [], [], []
-        for gi in range(n_groups):
-            h, (c, s) = _mamba_stack(layer(blocks, gi), per_group, h, cfg)
-            h, _, kv = _attn_block(blocks["shared"], h, cfg, return_cache)
+        for group in (_unstack(blocks["groups"]) if n_groups else ()):
+            h, (c, s) = _mamba_stack(group, h, cfg, remat)
+            h, _, kv = _run(remat, _attn_block, blocks["shared"], h, cfg, return_cache)
             g_conv.append(c)
             g_ssm.append(s)
             if return_cache:
@@ -270,7 +293,7 @@ def forward_blocks(blocks: dict, h: torch.Tensor, cfg, return_cache: bool = Fals
                 vs.append(kv[1])
         tail_states = None
         if blocks["tail"] is not None:
-            h, tail_states = _mamba_stack(blocks["tail"], tail, h, cfg)
+            h, tail_states = _mamba_stack(blocks["tail"], h, cfg, remat)
         cache = None
         if return_cache:
             cache = {

@@ -1,1 +1,2 @@
-"""Functional optimizers over parameter lists (``repro.optim``'s)."""
+"""Functional optimizers over parameter lists (``repro.optim``'s), the LM
+step's in-place AdamW, and gradient compression."""

@@ -6,7 +6,11 @@ parameter list with ``None`` holes (the SNNs' pool layers): each returns
 returns ``(updates, state')``, and ``apply_updates`` adds them.  The state
 mirrors the parameter list (AdamW's ``{"mu": [...], "nu": [...]}``), so a
 reference state converted to numpy carries across
-(``convert.train_state_from_jax``).  Nothing is updated in place.
+(``convert.train_state_from_jax``).  Nothing is updated in place, except
+by :func:`adamw_inplace`, the LM train step's AdamW: the same formula,
+written into the parameters and moments leaf by leaf, so a step holds no
+second copy of them (the counterpart of the reference's
+``donate_argnums``).
 
 ``step`` and the schedules are host numbers (the step counter of
 ``snn.train.TrainState`` is a Python int), so no update waits on the card.
@@ -22,6 +26,7 @@ import torch
 
 __all__ = [
     "adamw",
+    "adamw_inplace",
     "apply_updates",
     "clip_by_global_norm",
     "cosine_schedule",
@@ -84,6 +89,32 @@ def adamw(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, params=None,
         return updates, {"mu": mus, "nu": nus}
 
     return update_fn, state
+
+
+@torch.no_grad()
+def adamw_inplace(params: list, grads: list, mu: list, nu: list, step, lr: float,
+                  b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> None:
+    """:func:`adamw`'s update applied in place: ``mu``, ``nu`` and ``params``
+    (aligned lists, ``None`` skipped) are overwritten.
+
+    Each value is the functional one bit for bit: the same operations in
+    the same order, only into reused buffers (``mu.mul_(b1).add_(g * (1 -
+    b1))``, never ``add_(g, alpha=...)``, which fuses a multiply-add and
+    rounds once where :func:`adamw` rounds twice).  Two temporaries of
+    one leaf's size live at a time.
+    """
+    step_f = float(step) + 1.0
+    bc1, bc2 = 1 - b1 ** step_f, 1 - b2 ** step_f
+    for p, g, m, v in zip(params, grads, mu, nu):
+        if g is None:
+            continue
+        m.mul_(b1).add_(g * (1 - b1))
+        v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
+        den = torch.div(v, bc2).sqrt_().add_(eps)
+        u = torch.div(m, bc1).div_(den)
+        torch.mul(p, weight_decay, out=den)
+        p.add_(u.add_(den).mul_(-lr))
+        del den, u
 
 
 def sgd(lr=1e-2, momentum=0.9, nesterov=False, params=None):

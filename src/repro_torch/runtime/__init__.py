@@ -1,6 +1,8 @@
-"""Runtime support: the stream worker's watchdog and rewind-and-replay."""
+"""Runtime support: the watchdog, rewind-and-replay, and the fault-tolerant
+training loop."""
 from .fault_tolerance import (RestartableFailure, StepWatchdog, StragglerDetector,
                               StragglerStats, retrying)
+from .loop import LoopConfig, TrainingLoop
 
-__all__ = ["RestartableFailure", "StepWatchdog", "StragglerDetector",
-           "StragglerStats", "retrying"]
+__all__ = ["LoopConfig", "RestartableFailure", "StepWatchdog", "StragglerDetector",
+           "StragglerStats", "TrainingLoop", "retrying"]

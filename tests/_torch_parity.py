@@ -32,6 +32,7 @@ def jax_ref():
         from repro import configs as lm_config_pkg
         from repro.configs import base as lm_configs
         from repro.configs import spidr_gesture, spidr_optflow
+        from repro.data import pipeline as lm_pipeline
         from repro.core import (cim_macro, energy, layers, modes, network, neuron,
                                 pipeline, quant, s2a, zero_skip)
         from repro.engine import cost, inference, streaming
@@ -45,13 +46,14 @@ def jax_ref():
         from repro.models import model as lm_model
         from repro.models import moe as lm_moe
         from repro.models import rwkv6, transformer
-        from repro.optim import optimizer
+        from repro.optim import compression, optimizer
         from repro.obs import logs as obs_logs
         from repro.obs import metrics as obs_metrics
         from repro.obs import timeline
         from repro.obs import trace as obs_trace
         from repro.roofline import analysis as roofline
         from repro.runtime import fault_tolerance
+        from repro.runtime import loop as lm_loop
         from repro.snn import data, export, train
     return types.SimpleNamespace(
         jax=jax, jnp=jnp, analysis=analysis, analysis_cli=analysis_cli,
@@ -69,7 +71,8 @@ def jax_ref():
         s2a=s2a, zero_skip=zero_skip, timeline=timeline, export=export,
         checkpoint=checkpoint, streaming=streaming, obs_metrics=obs_metrics,
         obs_trace=obs_trace, obs_logs=obs_logs, fault_tolerance=fault_tolerance,
-        autotune=autotune, roofline=roofline, optimizer=optimizer, train=train)
+        autotune=autotune, roofline=roofline, optimizer=optimizer, train=train,
+        lm_pipeline=lm_pipeline, compression=compression, lm_loop=lm_loop)
 
 
 @pytest.fixture

@@ -309,8 +309,9 @@ def test_entry_points_raise_without_a_card(tmp_path):
                         "--ckpt-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="cuda"):
         train_gesture.main(["--smoke", "--ckpt", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A12"):
-        train_cli.main(["--arch", "qwen1.5-0.5b"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_cli.main(["--arch", "qwen1.5-0.5b", "--reduced", "--steps", "1",
+                        "--ckpt-dir", str(tmp_path / "lm")])
 
 
 # ---------------------------------------------------------------------------
