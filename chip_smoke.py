@@ -174,7 +174,22 @@ Phases, each printing JSON lines:
                 on the CPU (float32 compute, TF32 off): loss and grad_norm
                 within 1e-4 relative, every gradient leaf within 1e-3 of
                 its largest
- 12. a ``kernels`` line: launches on phases 3-6, 6c, 6d, 8 and 11, max error,
+ 12. dryrun     (ROADMAP A12.3, in a child process: ``chip_smoke.py
+                --dryrun-child``; no kernel runs here, and neither the
+                parent's nor the child's launch counts may move) (a)
+                ``repro_torch.launch.dryrun``'s CLI with ``--variant auto``
+                on fake CUDA tensors over ``DRYRUN_CELLS``: every family
+                and every kind, a skipped cell and a pod2 cell, each ``ok``
+                or ``skipped``, one JSON line per cell (per-device bytes,
+                the roofline's terms and bottleneck); (b) rank 0's local
+                program of ``LOCAL_CELLS`` run for real on the card
+                (``dryrun.run_local``: the same DTensor step on CUDA
+                tensors under the fake process group), one JSON line each
+                with the dry run's predicted bytes (argument + output +
+                temp) against the measured peak and the step's CUDA-event
+                ms against the record's ``compute_s``: each peak under
+                80 GiB and within a factor of 2 of its prediction
+ 13. a ``kernels`` line: launches on phases 3-6, 6c, 6d, 8 and 11, max error,
      kernel / plain / bound / library times per kernel
 
 then the card's name and power limit (nvidia-smi) and, last, the line
@@ -286,6 +301,8 @@ def main() -> int:
     sys.path.insert(0, SRC)
     if sys.argv[1:2] == ["--flow-restore-child"]:
         return _flow_restore_child(torch, sys.argv[2:])
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        return _dryrun_child(torch, sys.argv[2:])
     _guard_compiles()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -369,6 +386,12 @@ def main() -> int:
           "lm_train": phase_launches, "launches": launches})
     check_lm_train(torch, dev, card, train_runs, phase_launches)
     del train_runs
+    _free(torch)
+    kernels.reset_launches()
+    dry = phase_dryrun(card)
+    moved = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    check(not moved, f"dryrun: the phase launched kernels {moved}")
+    check_dryrun(card, dry)
     for name in KERNEL_INFO:
         check(launches[name] > 0, f"no path launched {name}")
     emit({"kernels": [dict(name=name, route="cuda", launches=launches[name],
@@ -3643,6 +3666,137 @@ def check_lm_train(torch, dev, card, runs, launches: dict) -> None:
     emit({"phase": "lm_train_check", "card": card, "wkv_grad": wkv,
           "grad_leaf_rel_bound": GRAD_LEAF_REL, "card_vs_cpu_rel_bound": CARD_CPU_REL,
           "card_vs_cpu": rows, "seconds": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------------------
+# 12. dryrun (ROADMAP A12.3)
+# ---------------------------------------------------------------------------
+# (arch, shape, mesh): dense, moe, ssm, hybrid, audio and vlm; train,
+# prefill and decode; a skipped cell and a pod2 cell.
+DRYRUN_CELLS = [
+    ("qwen3-14b", "train_4k", "pod1"),
+    ("moonshot-v1-16b-a3b", "prefill_32k", "pod1"),
+    ("rwkv6-7b", "long_500k", "pod1"),
+    ("zamba2-7b", "decode_32k", "pod1"),
+    ("musicgen-large", "decode_32k", "pod2"),
+    ("chameleon-34b", "decode_32k", "pod1"),
+    ("qwen1.5-0.5b", "long_500k", "pod1"),
+]
+# Rank 0's local program run for real: (arch, shape), pod1, --variant auto.
+LOCAL_CELLS = [("qwen3-14b", "train_4k"), ("moonshot-v1-16b-a3b", "prefill_32k")]
+PEAK_FACTOR = 2.0    # measured peak within this factor of the prediction
+CARD_GIB = 80.0
+
+
+def _dryrun_child(torch, argv) -> int:
+    """``chip_smoke.py --dryrun-child OUT``: phase 12 (a) and (b) in a
+    process of its own (a fake process group is process state); writes
+    the records, the local runs and this process' launch counts to OUT."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import shutdown_world
+
+    (out,) = argv
+    torch.cuda.set_device(0)
+    kernels.reset_launches()
+    res = {"cells": [], "local": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for arch, shape, mesh in DRYRUN_CELLS:
+            try:
+                dryrun.main(["--arch", arch, "--shape", shape, "--mesh", mesh,
+                             "--variant", "auto", "--out", tmp, "--force"])
+            except SystemExit:  # the record says what failed
+                pass
+            name = f"{arch}__{shape}__{mesh}__auto.json"
+            with open(os.path.join(tmp, name)) as f:
+                res["cells"].append(json.load(f))
+        res["cli_seconds"] = time.perf_counter() - t0
+    by_cell = {(r["arch"], r["shape"], r["multi_pod"]): r for r in res["cells"]}
+    for arch, shape in LOCAL_CELLS:
+        rec = by_cell[(arch, shape, False)]
+        t0 = time.perf_counter()
+        run = dryrun.run_local(arch, shape, False, "auto", seed=0)
+        run["seconds"] = time.perf_counter() - t0
+        run["arch"], run["shape"] = arch, shape
+        run["record_status"] = rec["status"]
+        res["local"].append(run)
+        _free(torch)
+    shutdown_world()
+    res["launches"] = dict(kernels.LAUNCHES)
+    with open(out, "w") as f:
+        json.dump(res, f, default=str)
+    return 0
+
+
+def phase_dryrun(card: str) -> dict:
+    """Phase 12: runs ``--dryrun-child`` and returns what it wrote."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "dryrun.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--dryrun-child",
+                               out], capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"dryrun child exited {proc.returncode}: "
+              f"{proc.stderr[-3000:]}")
+        with open(out) as f:
+            res = json.load(f)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def check_dryrun(card: str, res: dict) -> None:
+    moved = {k: n for k, n in res["launches"].items() if n}
+    check(not moved, f"dryrun: the child launched kernels {moved}")
+    gib = 2 ** 30
+    for r in res["cells"]:
+        check(r["status"] in ("ok", "skipped"), f"dryrun {r['cell']}: {r['status']} "
+              f"{r.get('error', '')} {r.get('traceback', '')[-2000:]}")
+        row = {"phase": "dryrun_cell", "cell": r["cell"], "status": r["status"]}
+        if r["status"] == "ok":
+            mem, rl = r["memory_analysis"], r["roofline"]
+            row.update(variant=r["resolved_variant"], trace_s=r["trace_s"],
+                       **{k.replace("_size_in_bytes", "_gib"): v / gib
+                          for k, v in mem.items()},
+                       **{k: rl[k] for k in ("compute_s", "memory_s", "collective_s",
+                                             "bottleneck", "useful_flops_ratio",
+                                             "dot_flops_local", "collective_bytes_local")})
+        else:
+            row["reason"] = r["reason"]
+        emit(row)
+    kinds = {r["meta"]["kind"] for r in res["cells"] if r["status"] == "ok"}
+    check(kinds == {"train", "prefill", "decode"}, f"dryrun: kinds {kinds}")
+    check(any(r["status"] == "skipped" for r in res["cells"]), "dryrun: no skipped cell")
+    check(any(r["multi_pod"] and r["status"] == "ok" for r in res["cells"]),
+          "dryrun: no pod2 cell")
+    by_cell = {(r["arch"], r["shape"], r["multi_pod"]): r for r in res["cells"]}
+    for run in res["local"]:
+        rec = by_cell[(run["arch"], run["shape"], False)]
+        mem = rec["memory_analysis"]
+        predicted = (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+                     + mem["temp_size_in_bytes"])
+        ratio = run["peak_bytes"] / predicted
+        emit({"phase": "dryrun_local", "card": card, "cell": rec["cell"],
+              "variant": run["variant"], "predicted_gib": predicted / gib,
+              "predicted": {k: v / gib for k, v in mem.items()},
+              "measured_peak_gib": run["peak_bytes"] / gib,
+              "args_gib": run["args_bytes"] / gib, "peak_over_predicted": ratio,
+              "device_ms": run["device_ms"],
+              "compute_s_ms": rec["roofline"]["compute_s"] * 1e3,
+              "dot_flops_local": rec["roofline"]["dot_flops_local"],
+              "seconds": run["seconds"]})
+        check(run["peak_bytes"] < CARD_GIB * gib and predicted < CARD_GIB * gib,
+              f"dryrun {rec['cell']}: peak {run['peak_bytes'] / gib} GiB, predicted "
+              f"{predicted / gib} GiB")
+        check(1 / PEAK_FACTOR <= ratio <= PEAK_FACTOR,
+              f"dryrun {rec['cell']}: measured peak {run['peak_bytes'] / gib:.2f} GiB is "
+              f"not within {PEAK_FACTOR}x of the predicted {predicted / gib:.2f} GiB")
+    emit({"phase": "dryrun", "card": card, "cells": len(res["cells"]),
+          "cli_seconds": res["cli_seconds"], "seconds": res["seconds"],
+          "child_launches": res["launches"]})
 
 
 if __name__ == "__main__":

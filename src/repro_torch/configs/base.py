@@ -4,16 +4,39 @@ The counterpart of ``repro.configs.base``: ``ArchConfig`` (the published
 numbers of one architecture), ``reduced()`` (the same family at CPU size),
 the analytic ``param_count`` / ``active_param_count`` and ``get_config``.
 The registry maps every name the reference knows (ten LMs and the paper's
-two SNN configurations) to its module here.  The dry-run material
-(``ShapeSpec``, ``SHAPES``, ``input_specs``, ``supports``,
-``skip_reason``) waits for ROADMAP A12.3.
+two SNN configurations) to its module here.  The dry run's material is
+the reference's too: the four assigned shape cells (``ShapeSpec``,
+``SHAPES``), which cells an architecture runs (``supports``,
+``skip_reason``) and ``input_specs``, the inputs of a cell as tensors
+that hold no data (meta tensors, or fake ones under a ``FakeTensorMode``).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional
 
-__all__ = ["ArchConfig", "get_config", "list_archs"]
+import torch
+
+__all__ = ["ArchConfig", "SHAPES", "ShapeSpec", "get_config", "input_specs",
+           "list_archs"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+# The four assigned LM shape cells.
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +89,19 @@ class ArchConfig:
     @property
     def d_inner(self) -> int:
         return self.expand * self.d_model
+
+    def supports(self, shape: ShapeSpec) -> bool:
+        if shape.name == "long_500k" and not self.sub_quadratic:
+            return False
+        return True
+
+    def skip_reason(self, shape: ShapeSpec) -> Optional[str]:
+        if not self.supports(shape):
+            return (
+                "pure full-attention arch: 500k-context requires sub-quadratic "
+                "attention (DESIGN.md §4)"
+            )
+        return None
 
     def reduced(self) -> "ArchConfig":
         """Same-family tiny config for CPU tests (the reference's numbers)."""
@@ -164,3 +200,22 @@ def get_config(name: str):
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; available: {list(_REGISTRY)}")
     return importlib.import_module(f"repro_torch.configs.{_REGISTRY[name]}").CONFIG
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, device="meta") -> dict:
+    """Stand-ins for every model input of a cell, made with ``torch.empty``
+    on ``device`` (meta by default; fake tensors under a
+    ``FakeTensorMode``): int32 ``tokens`` and ``labels``, or bfloat16
+    ``embeds`` for the stub frontends, at the reference's shapes."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        s = 1  # one new token against a seq_len-deep cache (built elsewhere)
+
+    def empty(*size, dtype=torch.int32):
+        return torch.empty(size, dtype=dtype, device=device)
+
+    out = ({"tokens": empty(b, s)} if cfg.embed_inputs
+           else {"embeds": empty(b, s, cfg.d_model, dtype=torch.bfloat16)})
+    if shape.kind == "train":
+        out["labels"] = empty(b, s)
+    return out

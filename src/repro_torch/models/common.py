@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import sharding
+
 __all__ = ["apply_rope", "cross_entropy_loss", "dense_init", "embed_init",
            "rmsnorm", "rope_freqs"]
 
@@ -47,10 +49,86 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token CE; logits (B, S, V), labels (B, S) integers."""
+    """Mean next-token CE; logits (B, S, V), labels (B, S) integers.
+
+    While a mesh is armed (the dry run) it runs on each rank's block of
+    the logits (:func:`_cross_entropy_sharded`): DTensor's rules for the
+    gather below give a replicated gradient of the global logits' size,
+    and ``loss_parallel`` covers a backward only inside its context.
+    """
+    if sharding.armed():
+        return _cross_entropy_sharded(logits, labels)
+    return _cross_entropy(logits, labels)
+
+
+def _cross_entropy(logits, labels):
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     return nll.mean()
+
+
+class _SumReplicated(torch.autograd.Function):
+    """An all-reduce sum over a mesh axis whose result every rank then uses
+    the same way: the gradient passes through unchanged (Megatron's reduce
+    from a tensor-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _cross_entropy_sharded(logits, labels):
+    """The mean CE over an armed mesh, on each rank's block of the logits
+    (``sharding.map_local``): the mean of its tokens over the number of
+    token blocks, summed over the ranks (``Partial``).  With the
+    vocabulary sharded, the max, the sum of exponentials and the label's
+    logit are reduced over its shards (Megatron's vocabulary-parallel
+    cross entropy)."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    logits = sharding.as_dtensor(logits)
+    mesh = logits.device_mesh
+    logits = logits.redistribute(mesh, [  # pending sums done
+        Replicate() if isinstance(p, Partial) else p for p in logits.placements])
+    spec = sharding.spec_of(logits)
+    last = logits.dim() - 1
+    groups = [(mesh, i) for i, p in enumerate(logits.placements)
+              if isinstance(p, Shard) and p.dim == last]
+    v_axes = [mesh.mesh_dim_names[i] for _, i in groups]
+    blocks = 1
+    for n, p in zip(mesh.shape, logits.placements):
+        blocks *= n if isinstance(p, Shard) and p.dim != last else 1
+
+    def local(lg, lb):
+        if not groups:
+            return _cross_entropy(lg, lb) / blocks
+        lg = lg.to(torch.float32)
+        v_loc = lg.shape[-1]
+        off = sharding.axes_index(v_axes) * v_loc
+        m = lg.detach().amax(dim=-1, keepdim=True)
+        for g in groups:
+            m = funcol.wait_tensor(funcol.all_reduce(m, "max", g))
+        s = torch.exp(lg - m).sum(dim=-1)
+        lb = lb.long()
+        mine = (lb >= off) & (lb < off + v_loc)
+        t = torch.gather(lg, -1, (lb - off).clamp(0, v_loc - 1)[..., None])[..., 0]
+        t = t * mine
+        for g in groups:
+            s, t = _SumReplicated.apply(s, g), _SumReplicated.apply(t, g)
+        return (torch.log(s) + m[..., 0] - t).mean() / blocks
+
+    out = tuple(Partial() if isinstance(p, Shard) and p.dim != last else Replicate()
+                for p in logits.placements)
+    return sharding.map_local(local, (logits, labels),
+                              (logits.placements, sharding.placements(spec[:-1], mesh)),
+                              (out,))
 
 
 def dense_init(generator: torch.Generator, shape) -> torch.Tensor:

@@ -3,7 +3,9 @@
 The counterpart of ``repro.models.ffn``.  The reference names a
 ``spidr_quant`` flag for a quantized serving path that it never wires in;
 like the reference, the FFN here is plain matrix products.  ``jax.nn.gelu``
-is the tanh approximation, so this one is too.
+is the tanh approximation, so this one is too.  The up projection is
+pinned over 'model' (``sharding.constrain``, the identity unless a mesh is
+armed), as in the reference.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..sharding import constrain
 from .common import dense_init
 
 __all__ = ["FFNParams", "ffn_forward", "init_ffn"]
@@ -37,7 +40,7 @@ def init_ffn(generator: torch.Generator, d_model: int, d_ff: int,
 
 def ffn_forward(p: FFNParams, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    up = x @ p.w_up.to(dt)
+    up = constrain(x @ p.w_up.to(dt), "dp", None, "model")
     if p.w_gate is not None:  # SwiGLU
         h = F.silu(x @ p.w_gate.to(dt)) * up
     else:  # GELU

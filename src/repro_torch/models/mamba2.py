@@ -17,6 +17,11 @@ and log-decay, which leaves the carried state exactly as it was (unlike
 RWKV6's padding, ROADMAP C3).  Dtypes follow the reference: projections
 and the conv in ``x.dtype`` (bfloat16 as served), dt and the SSD in
 float32, y cast to ``x.dtype`` before the gated RMS norm and ``silu(z)``.
+
+While a mesh is armed (the dry run), x and the state are pinned
+heads-over-'model' at the reference's sites and the chunk loop runs on
+each rank's (batch, head) block (``sharding.local_call``), the layout the
+reference pins the carried state to at every chunk.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import sharding
 from .common import dense_init, rmsnorm
 
 __all__ = ["CONV_K", "HEAD_P", "Mamba2Params", "init_mamba2_layer",
@@ -135,21 +141,33 @@ def mamba2_forward(p: Mamba2Params, x, state, cfg, chunk: int = 64):
     proj = x @ p.w_in.to(dt_)
     z, xbc, dt_raw = _split_in(proj, cfg)
     xbc, conv_state_new = _causal_conv(xbc, p.conv_w, p.conv_b, conv_state)
-    xh = xbc[..., :di].reshape(b, s, h, HEAD_P)
+    xh = sharding.constrain(xbc[..., :di].reshape(b, s, h, HEAD_P), "dp", None, "model", None)
     bb = xbc[..., di:di + n]
     cc = xbc[..., di + n:]
 
     dt = _softplus(dt_raw.to(f32) + p.dt_bias.to(f32))            # (B,S,H)
     la = -dt * torch.exp(p.a_log.to(f32))[None, None, :]         # log a_t < 0
 
-    pad = -s % chunk
-    xs = (xh, bb, cc, dt, la)
-    if pad:
-        xs = tuple(F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in xs)
-    xh_p, bb_p, cc_p, dt_p, la_p = xs
-    y, s_f = _ssd_chunked(xh_p.to(f32), bb_p.to(f32), cc_p.to(f32), dt_p, la_p,
-                          s0.to(f32), min(chunk, xh_p.shape[1]))
-    y = y[:, :s] + p.d_skip.to(f32)[None, None, :, None] * xh.to(f32)
+    s0 = sharding.constrain(s0.to(f32), "dp", "model", None, None)
+
+    def ssd(xh, bb, cc, dt, la, s0):
+        pad = -s % chunk
+        xs = (xh, bb, cc, dt, la)
+        if pad:
+            xs = tuple(F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in xs)
+        xh_p, bb_p, cc_p, dt_p, la_p = xs
+        y, s_f = _ssd_chunked(xh_p.to(f32), bb_p.to(f32), cc_p.to(f32), dt_p, la_p,
+                              s0, min(chunk, xh_p.shape[1]))
+        return y[:, :s], s_f
+
+    specs = ()
+    if sharding.armed():  # (B, S, H, P) blocks of (batch, head)
+        sp = sharding.resolve(xh.shape, "dp", None, "model", None)
+        st = (sp[0], sp[2], None, None)
+        bs, hs = (sp[0], None, None), (sp[0], None, sp[2])
+        specs = ((sp, bs, bs, hs, hs, st), (sp, st))
+    y, s_f = sharding.local_call(ssd, (xh, bb, cc, dt, la, s0), *specs)
+    y = y + p.d_skip.to(f32)[None, None, :, None] * xh.to(f32)
     y = y.reshape(b, s, di).to(dt_)
     y = rmsnorm(y, p.norm_w.to(f32), cfg.rmsnorm_eps) * F.silu(z)
     return y @ p.w_out.to(dt_), (conv_state_new, s_f)
@@ -172,10 +190,19 @@ def mamba2_decode_step(p: Mamba2Params, x, state, cfg):
 
     dt = _softplus(dt_raw[:, 0].to(f32) + p.dt_bias.to(f32))          # (B,H)
     a = torch.exp(-dt * torch.exp(p.a_log.to(f32))[None, :])          # (B,H)
-    s_new = (s0 * a[..., None, None]
-             + dt[:, :, None, None] * bf[:, None, :, None] * xf[:, :, None, :])
-    y = (cf[:, None, None, :] @ s_new)[:, :, 0]                       # (B,H,P)
-    y = y + p.d_skip.to(f32)[None, :, None] * xf
+
+    def step(s0, a, dt, bf, xf, cf, d_skip):
+        s_new = (s0 * a[..., None, None]
+                 + dt[:, :, None, None] * bf[:, None, :, None] * xf[:, :, None, :])
+        y = (cf[:, None, None, :] @ s_new)[:, :, 0]                   # (B,H,P)
+        return y + d_skip.to(f32)[None, :, None] * xf, s_new
+
+    specs = ()
+    if sharding.armed():  # each rank's (batch, head) block of the state
+        st = sharding.resolve(s0.shape, "dp", "model", None, None)
+        bh, bn = st[:2], (st[0], None)
+        specs = ((st, bh, bh, bn, st[:3], bn, st[1:2]), (st[:3], st))
+    y, s_new = sharding.local_call(step, (s0, a, dt, bf, xf, cf, p.d_skip), *specs)
     y = y.reshape(b, 1, di).to(dt_)
     y = rmsnorm(y, p.norm_w.to(f32), cfg.rmsnorm_eps) * F.silu(z)
     return y @ p.w_out.to(dt_), (conv_state_new, s_new)

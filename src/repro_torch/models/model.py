@@ -12,27 +12,47 @@ Each takes ``{"tokens": (B, S) ids}`` or, as the reference does for the
 stub frontends of chameleon and musicgen (``embed_inputs=False``),
 ``{"embeds": (B, S, D)}``; the train step also ``{"labels": (B, S)}``.
 
-The reference's ``_compute_params`` is the identity with every flag off,
-as serving runs; instead of casting each weight to bfloat16 on every call
-as the reference does, :func:`serving_params` makes the casts once (the
-same elementwise rounding), so a step reads half the bytes.
+:func:`_compute_params` is the reference's mixed-precision lever: under
+the ``bf16_params`` flag (``repro_torch.flags``, set by the dry run's
+variants) every float32 leaf of rank >= 2 is cast to a bfloat16 compute
+copy at the start of a step, so sharded weights are gathered in bfloat16
+and their gradients come back through the cast to the float32 masters;
+with the flag off, as serving and training run, it is the identity.
+Instead of casting each weight to bfloat16 on every call as the
+reference does, :func:`serving_params` makes the casts once (the same
+elementwise rounding), so a step reads half the bytes.
 :func:`init_serving_params` draws the same numbers as
 ``serving_params(init_params(...))`` but casts each leaf as soon as it is
 drawn, layer by layer: chameleon-34b's float32 masters (137 GB) would not
 fit on one 80 GB card, its bfloat16 copy (69 GB) does.
+
+The dry run (``launch/dryrun.py``) builds a cell's trees with no data:
+:func:`abstract_params`, :func:`abstract_opt_state` and
+:func:`abstract_decode_cache` give meta tensors of the reference's shapes
+and dtypes.  The activations are pinned at the reference's three sites
+(``sharding.constrain``, the identity unless a mesh is armed).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import flags, sharding
 from ..checkpoint.checkpoint import tree_flatten, tree_unflatten
 from ..configs.base import ArchConfig
 from ..optim import optimizer
+from ..sharding import constrain
 from . import attention, ffn, mamba2, moe, rwkv6
 from .common import cross_entropy_loss, dense_init, embed_init, rmsnorm
-from .transformer import _map_tree, decode_blocks, forward_blocks, init_blocks
+from .transformer import (
+    _map_tree,
+    decode_blocks,
+    forward_blocks,
+    init_blocks,
+    init_decode_state,
+)
 
-__all__ = ["COMPUTE_DTYPE", "MOE_AUX_WEIGHT", "MOE_Z_WEIGHT", "forward",
+__all__ = ["COMPUTE_DTYPE", "MOE_AUX_WEIGHT", "MOE_Z_WEIGHT", "abstract_decode_cache",
+           "abstract_opt_state", "abstract_params", "forward",
            "init_opt_state", "init_params", "init_serving_params", "loss_and_grads",
            "make_decode_step",
            "make_prefill_step", "make_train_step", "serving_params"]
@@ -86,6 +106,53 @@ def init_serving_params(generator: torch.Generator, cfg: ArchConfig) -> dict:
                  head_cast=lambda t: t.to(COMPUTE_DTYPE))
 
 
+def _meta(t):
+    return None if t is None else torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The tree of :func:`init_params` as meta tensors (shapes and dtypes,
+    no data): the draws run under a ``FakeTensorMode``, so nothing of the
+    model's size is allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = init_params(torch.Generator(), cfg)
+    return _map_tree(lambda g, f, t: _meta(t), params)
+
+
+def abstract_opt_state(params_abstract: dict) -> dict:
+    """AdamW's ``{"mu", "nu"}`` for ``params_abstract``, as meta tensors."""
+    return {"mu": _map_tree(lambda g, f, t: _meta(t), params_abstract),
+            "nu": _map_tree(lambda g, f, t: _meta(t), params_abstract)}
+
+
+def abstract_decode_cache(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """The decode cache of ``batch`` slots and ``seq_len`` rows, as meta tensors."""
+    return init_decode_state(cfg, batch, seq_len, device="meta")
+
+
+def _compute_params(params):
+    """Mixed precision: bfloat16 compute copies of the float32 masters
+    (every float32 leaf of rank >= 2) under the ``bf16_params`` flag, the
+    identity without it.
+
+    The cast is elementwise on the sharded leaves, so every FSDP
+    all-gather downstream moves bfloat16 and the parameter cotangents
+    come back through it as float32 for the optimizer.  The masters and
+    the optimizer state stay float32.
+    """
+    if not flags.flag("bf16_params"):
+        return params
+
+    def cast(g, f, p):
+        if p is None or p.dtype != torch.float32 or p.dim() < 2:
+            return p
+        return p.to(torch.bfloat16)
+
+    return _map_tree(cast, params)
+
+
 def serving_params(params: dict) -> dict:
     """Each leaf cast once to the dtype the forward uses it in.
 
@@ -133,19 +200,30 @@ class _HeadMatmul(torch.autograd.Function):
         return dh, dhead
 
 
+def _logits(h, head):
+    """bfloat16 ``h @ head`` with float32 output."""
+    if h.is_cuda and h.dtype != torch.float32:
+        lead = h.shape[:-1]
+        return _HeadMatmul.apply(h.reshape(-1, h.shape[-1]), head).reshape(*lead, -1)
+    return torch.matmul(h.to(torch.float32), head.to(torch.float32))
+
+
 def _head_logits(params, cfg, h):
     """bfloat16 ``h @ head`` with float32 output (the reference's
     ``preferred_element_type``): the products of bfloat16 values are exact
     in float32 and summed in float32, so the logits are not rounded to
-    bfloat16, which would flip greedy argmax on near ties."""
+    bfloat16, which would flip greedy argmax on near ties.  While a mesh is
+    armed the product runs on each rank's block (``sharding.local_call``:
+    DTensor has no rule for a matrix product with a float32 output)."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    head = head.to(COMPUTE_DTYPE)
+    head = sharding.gather_params(head).to(COMPUTE_DTYPE)
     h = h.to(COMPUTE_DTYPE)
-    if h.is_cuda and h.dtype != torch.float32:
-        lead = h.shape[:-1]
-        logits = _HeadMatmul.apply(h.reshape(-1, h.shape[-1]), head).reshape(*lead, -1)
-    else:
-        logits = torch.matmul(h.to(torch.float32), head.to(torch.float32))
+    specs = ()
+    if sharding.armed():
+        hs = sharding.resolve(h.shape, "dp", None, None)
+        ws = sharding.resolve(head.shape, None, "model")
+        specs = ((hs, ws), (hs[:-1] + ws[-1:],))
+    logits = sharding.local_call(_logits, (h, head), *specs)
     if cfg.padded_vocab != cfg.vocab_size:  # mask pad columns
         valid = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab_size
         logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
@@ -153,7 +231,17 @@ def _head_logits(params, cfg, h):
 
 
 def _embed(params, tokens):
-    return params["embed"][tokens].to(COMPUTE_DTYPE)
+    """The rows of the embedding for ``tokens``.  While a mesh is armed the
+    table is gathered whole and each rank looks its own tokens up
+    (``sharding.local_call``): DTensor's rules neither look rows up in a
+    vocabulary-sharded table for both the forward and the backward, nor
+    (in torch 2.11) index with ids sharded over two mesh axes."""
+    table = params["embed"]
+    if sharding.armed():  # each rank looks its tokens up in the whole table
+        ts = sharding.spec_of(tokens)
+        return sharding.local_call(lambda t, tok: t[tok].to(COMPUTE_DTYPE),
+                                   (table, tokens), ((None, None), ts), (ts + (None,),))
+    return table[tokens].to(COMPUTE_DTYPE)
 
 
 def _inputs(params, tokens=None, embeds=None):
@@ -168,11 +256,13 @@ def forward(params: dict, cfg: ArchConfig, tokens=None, embeds=None,
             return_cache: bool = False, use_kernel: bool | None = None,
             remat: bool = False):
     """Returns (logits (B, S, V) float32, aux, cache)."""
-    h = _inputs(params, tokens, embeds)
+    # The embedding gather loses the batch sharding: re-pin it.
+    h = constrain(_inputs(params, tokens, embeds), "dp", None, None)
     h, aux, cache = forward_blocks(params["blocks"], h, cfg, return_cache=return_cache,
                                    use_kernel=use_kernel, remat=remat)
+    h = constrain(h, "dp", None, None)  # the sequence whole again (SP)
     h = rmsnorm(h, params["final_norm"].to(torch.float32), cfg.rmsnorm_eps)
-    return _head_logits(params, cfg, h), aux, cache
+    return constrain(_head_logits(params, cfg, h), "dp", None, "model"), aux, cache
 
 
 def make_prefill_step(cfg: ArchConfig, use_kernel: bool | None = None):
@@ -183,12 +273,16 @@ def make_prefill_step(cfg: ArchConfig, use_kernel: bool | None = None):
     picks the ssm family's wkv route (None: the kernel on CUDA tensors).
     """
     def prefill_step(params, batch):
-        h = _inputs(params, batch.get("tokens"), batch.get("embeds"))
+        params = _compute_params(params)
+        h = constrain(_inputs(params, batch.get("tokens"), batch.get("embeds")),
+                      "dp", None, None)
         h, _, cache = forward_blocks(params["blocks"], h, cfg, return_cache=True,
                                      use_kernel=use_kernel)
+        h = constrain(h, "dp", None, None)  # the sequence whole again (SP)
         h = rmsnorm(h[:, -1:], params["final_norm"].to(torch.float32),
                     cfg.rmsnorm_eps)
-        return _head_logits(params, cfg, h)[:, 0, :], cache
+        logits = constrain(_head_logits(params, cfg, h), "dp", None, "model")
+        return logits[:, 0, :], cache
 
     return prefill_step
 
@@ -197,7 +291,9 @@ def make_decode_step(cfg: ArchConfig, return_aux: bool = False):
     """``decode_step(params, cache, batch) -> (logits (B, V), new_cache)``;
     with ``return_aux`` also the MoE layers' mean ``drop_fraction``."""
     def decode_step(params, cache, batch):
-        h = _inputs(params, batch.get("tokens"), batch.get("embeds"))
+        params = _compute_params(params)
+        h = constrain(_inputs(params, batch.get("tokens"), batch.get("embeds")),
+                      "dp", None, None)
         h, new_cache, aux = decode_blocks(params["blocks"], h, cache, cfg)
         h = rmsnorm(h, params["final_norm"].to(torch.float32), cfg.rmsnorm_eps)
         logits = _head_logits(params, cfg, h)[:, 0, :]
@@ -220,6 +316,7 @@ def init_opt_state(params: dict) -> dict:
 def _loss(cfg, params, batch, remat, use_kernel):
     """(total loss, {"ce_loss", aux...}) of one batch, as the reference's
     ``loss_fn``."""
+    params = _compute_params(params)
     logits, aux, _ = forward(params, cfg, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"), remat=remat,
                              use_kernel=use_kernel)
@@ -268,8 +365,8 @@ def make_train_step(cfg: ArchConfig, lr: float = 3e-4, grad_clip: float = 1.0,
     """``train_step(params, opt_state, step, batch) -> (params, opt_state,
     metrics)``, term by term the reference's.
 
-    The forward runs in ``COMPUTE_DTYPE`` over the float32 masters (the
-    reference's ``_compute_params`` is the identity with its flags off);
+    The forward runs in ``COMPUTE_DTYPE`` over the float32 masters (through
+    :func:`_compute_params`, the identity unless ``bf16_params`` is set);
     the loss is ``cross_entropy_loss(logits[:, :-1], labels[:, 1:])`` plus,
     for the attention families, ``MOE_AUX_WEIGHT`` x the load-balance
     loss and ``MOE_Z_WEIGHT`` x the router z-loss (both 0 for dense

@@ -1,8 +1,7 @@
 """Mixture-of-Experts with top-k token-choice routing (granite, moonshot).
 
-The counterpart of the single-device path of ``repro.models.moe``; the
-reference's ``shard_map`` paths (expert- and token-parallel over a mesh)
-wait for ROADMAP A12.3.  Per layer, on the flattened tokens (T, D):
+The counterpart of ``repro.models.moe``.  Per layer, on the flattened
+tokens (T, D):
 
   * the router in float32: softmax over all E experts, the top k by a
     stable descending sort (``jax.lax.top_k`` puts the lower index first
@@ -17,6 +16,24 @@ wait for ROADMAP A12.3.  Per layer, on the flattened tokens (T, D):
     slots are zeros), the outputs gathered back (a dropped choice gives
     0) and summed per token in ``x``'s dtype, one choice after another;
   * aux: the load-balance loss, the router z-loss and the drop fraction.
+
+While a mesh is armed (the dry run), the layer runs on each rank's local
+token block (``torch.distributed.tensor.experimental.local_map``, the
+reference's ``shard_map``), so capacity is per local block, as in the
+reference, and a sharded result differs from the single-device one:
+
+  * EP path (the expert count divisible by the 'model' axis, moonshot's
+    64 on 16): tokens sharded over the data axes and replicated over
+    'model'; rank ``m`` of 'model' holds experts ``[m * e_loc, (m + 1) *
+    e_loc)`` and computes them for its tokens against the router's scores
+    over all E; its output is a partial sum, one sum all-reduce over
+    'model' away from the layer's (DTensor's ``Partial``).
+  * Replicated-experts path (granite's 40 on 16, or dp_only): the expert
+    weights are gathered whole and the tokens split over 'model' along
+    the sequence when it divides; no combine collective.
+
+The three aux scalars are means over every rank: each rank's value over
+the mesh size, summed (``Partial``).
 """
 from __future__ import annotations
 
@@ -25,6 +42,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import flags, sharding
 from .common import dense_init
 
 __all__ = ["MoEParams", "init_moe", "moe_forward"]
@@ -61,10 +79,13 @@ def capacity(t: int, top_k: int, n_experts: int, capacity_factor: float = 1.25) 
 
 
 def _local_moe(x, w_router, w_gate, w_up, w_down, top_k: int,
-               capacity_factor: float):
-    """MoE on tokens x (T, D). Returns (out, lb_loss, z_loss, drop, keep)."""
+               capacity_factor: float, e0: int = 0):
+    """MoE on tokens x (T, D), the experts ``[e0, e0 + e_loc)`` of the
+    router's E held in ``w_gate``/``w_up``/``w_down``.  Returns (out,
+    lb_loss, z_loss, drop, keep)."""
     t, d = x.shape
-    e = w_gate.shape[0]
+    e = w_router.shape[1]
+    e_loc = w_gate.shape[0]
     f32 = torch.float32
 
     logits = x.to(f32) @ w_router.to(f32)
@@ -77,13 +98,15 @@ def _local_moe(x, w_router, w_gate, w_up, w_down, top_k: int,
     flat_ids = top_ids.reshape(-1)                                   # (T*k,)
     onehot = F.one_hot(flat_ids, e)
     pos = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=-1)   # (T*k,)
-    keep = pos < cap
-    slot = torch.where(keep, flat_ids * cap + pos, torch.full_like(pos, e * cap))
+    local_ids = flat_ids - e0
+    in_slice = (local_ids >= 0) & (local_ids < e_loc)
+    keep = (pos < cap) & in_slice
+    slot = torch.where(keep, local_ids * cap + pos, torch.full_like(pos, e_loc * cap))
 
     token_idx = torch.arange(t, device=x.device).repeat_interleave(top_k)
-    buf = x.new_zeros((e * cap + 1, d))        # the last row takes the drops
+    buf = x.new_zeros((e_loc * cap + 1, d))    # the last row takes the drops
     buf[slot] = x[token_idx]
-    buf = buf[:e * cap].reshape(e, cap, d)
+    buf = buf[:e_loc * cap].reshape(e_loc, cap, d)
 
     dt = x.dtype
     h = F.silu(torch.bmm(buf, w_gate.to(dt))) * torch.bmm(buf, w_up.to(dt))
@@ -99,14 +122,71 @@ def _local_moe(x, w_router, w_gate, w_up, w_down, top_k: int,
     frac = F.one_hot(top_ids, e).to(f32).mean(dim=(0, 1))
     lb_loss = e * (frac * probs.mean(dim=0)).sum()
     z_loss = torch.logsumexp(logits, dim=-1).square().mean()
-    drop = 1.0 - keep.to(f32).mean()
+    drop = 1.0 - (pos < cap).to(f32).mean()
     return out, lb_loss, z_loss, drop, keep
 
 
 def moe_forward(p: MoEParams, x, top_k: int, capacity_factor: float = 1.25):
     """x: (B, S, D). Returns (out, aux)."""
     b, s, d = x.shape
+    if sharding.armed():
+        return _moe_sharded(p, x, top_k, capacity_factor)
     out, lb, zl, drop, _ = _local_moe(x.reshape(-1, d), p.w_router, p.w_gate,
                                       p.w_up, p.w_down, top_k, capacity_factor)
     return out.reshape(b, s, d), {"load_balance_loss": lb, "router_z_loss": zl,
                                   "drop_fraction": drop}
+
+
+def _moe_sharded(p: MoEParams, x, top_k: int, capacity_factor: float):
+    """The reference's ``shard_map`` paths over the armed mesh (module
+    docstring): one ``local_map`` per path (``sharding.map_local``)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = sharding.armed_mesh()
+    b, s, d = x.shape
+    e = p.w_router.shape[1]
+    sizes = sharding.axis_sizes(mesh)
+    dp = sharding.data_axes()
+    # dp_only folds the model axis into data parallelism: inside this layer
+    # there is no separate model axis to use for EP or token splitting.
+    model_size = 1 if flags.flag("dp_only") else sizes["model"]
+    n_dp = 1
+    for a in dp:
+        n_dp *= sizes[a]
+    b_spec = dp if (dp and b % n_dp == 0) else None
+    n_ranks = mesh.size()
+    ep = model_size > 1 and e % model_size == 0
+
+    def aux(lb, zl, drop):  # each rank's share of the mean over every rank
+        return lb / n_ranks, zl / n_ranks, drop / n_ranks
+
+    if ep:
+        def fn(xl, wr, wg, wu, wd):
+            e0 = mesh.get_local_rank("model") * wg.shape[0]
+            out, lb, zl, drop, _ = _local_moe(xl.reshape(-1, d), wr, wg, wu, wd,
+                                              top_k, capacity_factor, e0)
+            return (out.reshape(xl.shape), *aux(lb, zl, drop))
+
+        x_spec = (b_spec, None, None)
+        w_spec = ("model", None, None)
+        out_pl = list(sharding.placements(x_spec, mesh))
+        out_pl[mesh.mesh_dim_names.index("model")] = Partial()
+    else:
+        s_spec = "model" if (model_size > 1 and s % model_size == 0) else None
+
+        def fn(xl, wr, wg, wu, wd):
+            out, lb, zl, drop, _ = _local_moe(xl.reshape(-1, d), wr, wg, wu, wd,
+                                              top_k, capacity_factor)
+            return (out.reshape(xl.shape), *aux(lb, zl, drop))
+
+        x_spec = (b_spec, s_spec, None)
+        w_spec = (None, None, None)
+        out_pl = list(sharding.placements(x_spec, mesh))
+    scalar = (Partial(),) * mesh.ndim
+    rep = (Replicate(),) * mesh.ndim
+    w_pl = sharding.placements(w_spec, mesh)
+    out, lb, zl, drop = sharding.map_local(
+        fn, (x, p.w_router, p.w_gate, p.w_up, p.w_down),
+        (sharding.placements(x_spec, mesh), rep, w_pl, w_pl, w_pl),
+        (tuple(out_pl), scalar, scalar, scalar))
+    return out, {"load_balance_loss": lb, "router_z_loss": zl, "drop_fraction": drop}

@@ -20,6 +20,13 @@ decay (``_decay_log``) and the wkv state in float32, and the per-head
 group norm sees the float32 wkv output.  Every weight is cast to the dtype
 it is used in at the point of use, as the reference does; casting them
 once beforehand (``model.serving_params``) makes those casts no-ops.
+
+While a mesh is armed (the dry run), r, k, v and the state are pinned
+heads-over-'model' at the reference's sites, and the chunk loop runs on
+each rank's (batch, head) block (``sharding.local_call``): the
+reference pins the carried state to that layout at every chunk, so the
+loop needs no collective.  The wkv then takes the plain route, since B7's
+launch takes neither a fake tensor nor a DTensor.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import sharding
 from ..kernels import ref as kref
 from ..kernels.wkv_chunk import wkv_sequence
 from .common import dense_init, rmsnorm
@@ -125,6 +133,8 @@ def _ddlerp(p: RWKV6Params, x, x_prev):
     sx = x_prev - x
     xxx = x + sx * p.mu_x.to(dt)
     lora = torch.tanh(xxx @ p.tm_w1.to(dt))
+    if sharding.armed():  # the 5 x rank dim whole before it is split
+        lora = sharding.constrain(lora, "dp", *([None] * (lora.dim() - 1)))
     lora = lora.reshape(*lora.shape[:-1], 5, TM_RANK)
     mix = torch.einsum("...nr,nrd->...nd", lora, p.tm_w2.to(dt))
     streams = x[..., None, :] + sx[..., None, :] * (p.mu_rkvwg.to(dt) + mix)
@@ -202,9 +212,9 @@ def _time_mix_inputs(p: RWKV6Params, x, x_prev):
     xs = torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
     xr, xk, xv, xw, xg = _ddlerp(p, x, xs)
     dt = x.dtype
-    r = (xr @ p.wr.to(dt)).reshape(b, s, h, n)
-    k = (xk @ p.wk.to(dt)).reshape(b, s, h, n)
-    v = (xv @ p.wv.to(dt)).reshape(b, s, h, n)
+    r = sharding.constrain((xr @ p.wr.to(dt)).reshape(b, s, h, n), "dp", None, "model", None)
+    k = sharding.constrain((xk @ p.wk.to(dt)).reshape(b, s, h, n), "dp", None, "model", None)
+    v = sharding.constrain((xv @ p.wv.to(dt)).reshape(b, s, h, n), "dp", None, "model", None)
     g = F.silu(xg @ p.wg.to(dt))
     lw = _decay_log(p, xw).reshape(b, s, h, n)
     return r, k, v, lw, g
@@ -237,21 +247,32 @@ def rwkv6_time_mix(p: RWKV6Params, x, x_prev, s0, cfg, chunk: int = 32,
     """Full-sequence time-mix. x: (B,S,D). Returns (y, x_last, s_final).
 
     ``use_kernel`` selects the wkv kernel path (``kernels/wkv_chunk.py``);
-    the default ``None`` means "the tensors are on CUDA", the counterpart
-    of the reference's "on a TPU".  On CPU tensors the kernel path runs the
-    kernel's plain version.
+    the default ``None`` means "the tensors are on CUDA and no mesh is
+    armed", the counterpart of the reference's "on a TPU".  On CPU tensors
+    the kernel path runs the kernel's plain version.
     """
     s = x.shape[1]
     r, k, v, lw, g = _time_mix_inputs(p, x, x_prev)
     h, n = r.shape[2], r.shape[3]
-    u = p.bonus_u.to(torch.float32).reshape(h, n)
     f32 = torch.float32
-    r, k, v, lw = _pad_to_chunk(r.to(f32), k.to(f32), v.to(f32), lw, chunk)
+    u = sharding.constrain(p.bonus_u.to(f32), None).reshape(h, n)
+    s0 = sharding.constrain(s0.to(f32), "dp", "model", None, None)
     if use_kernel is None:
-        use_kernel = x.is_cuda
+        use_kernel = x.is_cuda and not sharding.armed()
     wkv_fn = _wkv_kernel_path if use_kernel else _wkv_chunked
-    y, s_f = wkv_fn(r, k, v, lw, u, s0.to(f32), min(chunk, r.shape[1]))
-    out = _time_mix_output(p, y[:, :s], g, x.dtype)
+
+    def wkv(r, k, v, lw, u, s0):
+        r, k, v, lw = _pad_to_chunk(r.to(f32), k.to(f32), v.to(f32), lw, chunk)
+        y, s_f = wkv_fn(r, k, v, lw, u, s0, min(chunk, r.shape[1]))
+        return y[:, :s], s_f
+
+    specs = ()
+    if sharding.armed():  # (B, S, H, N) blocks of (batch, head)
+        sp = sharding.resolve(r.shape, "dp", None, "model", None)
+        st = (sp[0], sp[2], None, None)
+        specs = ((sp, sp, sp, sp, (sp[2], None), st), (sp, st))
+    y, s_f = sharding.local_call(wkv, (r, k, v, lw, u, s0), *specs)
+    out = _time_mix_output(p, y, g, x.dtype)
     return out, x[:, -1, :], s_f
 
 
@@ -289,11 +310,19 @@ def rwkv6_time_mix_decode(p: RWKV6Params, x, x_prev, s0, cfg):
     v = (xv @ p.wv.to(dt)).reshape(b, h, n).to(f32)
     g = F.silu(xg @ p.wg.to(dt)).reshape(b, 1, d)
     w = torch.exp(_decay_log(p, xw)).reshape(b, h, n)
-    u = p.bonus_u.to(f32).reshape(h, n)
+    u = sharding.constrain(p.bonus_u.to(f32), None).reshape(h, n)
 
-    kv = k[..., :, None] * v[..., None, :]                      # (B,H,N,N)
-    y = torch.einsum("bhn,bhnm->bhm", r, s0 + u[None, :, :, None] * kv)
-    s_new = s0 * w[..., None] + kv
+    def step(r, k, v, w, u, s0):
+        kv = k[..., :, None] * v[..., None, :]                  # (B,H,N,N)
+        y = torch.einsum("bhn,bhnm->bhm", r, s0 + u[None, :, :, None] * kv)
+        return y, s0 * w[..., None] + kv
+
+    specs = ()
+    if sharding.armed():  # each rank's (batch, head) block of the state
+        st = sharding.resolve(s0.shape, "dp", "model", None, None)
+        bh = st[:3]
+        specs = ((bh, bh, bh, bh, (st[1], None), st), (bh, st))
+    y, s_new = sharding.local_call(step, (r, k, v, w, u, s0), *specs)
     y = rmsnorm(y.reshape(b, 1, h, n), y.new_ones(n), 64e-5).reshape(b, 1, d)
     y = (y.to(dt) * p.ln_x.to(dt)) * g
     return y @ p.wo.to(dt), x[:, -1, :], s_new

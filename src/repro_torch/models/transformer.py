@@ -18,8 +18,17 @@ zero gradient to sum).  With ``remat`` it runs each layer body, and each
 application of the hybrid's shared block, under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` around its
 scanned bodies): only layer boundaries are kept for the backward, which
-recomputes the rest.  The sharding constraints and remat names of the
-reference are no-ops on one device and are left out.
+recomputes the rest.
+
+The reference's layer boundaries are kept: :func:`_boundary` pins the
+residual stream (sequence-sharded over 'model' under the
+``sequence_parallel`` flag) and :func:`_block_input` gathers the sequence
+back before a block's projections; both are the identity unless a mesh is
+armed (``sharding.constrain``).  Under ``remat_saveout`` the per-layer
+checkpoint is selective (``create_selective_checkpoint_contexts``): the
+collectives that pin a boundary keep their outputs for the backward, so
+the recompute does not issue them again -- the reference's
+``save_only_these_names("block_out")``.
 
 ``init_blocks(generator, cfg, cast)`` draws the attention, MoE and hybrid
 families layer by layer and passes every drawn leaf through
@@ -29,9 +38,18 @@ the ssm family draws each stacked leaf at once, as before.
 """
 from __future__ import annotations
 
-import torch
-from torch.utils.checkpoint import checkpoint
+import functools
+import threading
 
+import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
+from .. import flags, sharding
+from ..sharding import constrain
 from .attention import AttentionParams, attention_forward, decode_attention, init_attention
 from .common import rmsnorm
 from .ffn import FFNParams, ffn_forward, init_ffn
@@ -168,10 +186,61 @@ def _unstack(tree) -> list:
     return [_map_tree(lambda g, f, p: p[i], parts) for i in range(n)]
 
 
-def _run(remat: bool, fn, *args):
-    """``fn(*args)``, under activation checkpointing when ``remat``."""
+# The functional collectives a boundary's redistribution issues; under
+# remat_saveout their outputs are what the checkpoint keeps ("block_out").
+_COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+                "all_to_all_single", "wait_tensor")
+_IN_BOUNDARY = threading.local()
+
+
+def _boundary(h, out):
+    """Residual-stream layer boundary ``h + out``, pinned (sequence-sharded
+    under ``sequence_parallel``; ``out`` is pinned so too before the add, a
+    reduce-scatter of a block's partial sum, so that its cotangent comes
+    back to the block whole along the sequence).  Under ``remat_saveout``
+    the collectives issued here are saved by the checkpoint."""
+    _IN_BOUNDARY.on = True
+    try:
+        if flags.flag("sequence_parallel"):   # sequence-sharded residuals
+            return constrain(h + constrain(out, "dp", "model", None), "dp", "model", None)
+        return constrain(h + out, "dp", None, None)
+    finally:
+        _IN_BOUNDARY.on = False
+
+
+def _block_input(h):
+    """Gather the sequence dim back before attention/ffn projections."""
+    if flags.flag("sequence_parallel"):
+        return constrain(h, "dp", None, None)
+    return h
+
+
+def _save_block_out(ctx, func, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_saveout``: keep the outputs of
+    a boundary's collectives, recompute everything else."""
+    packet = getattr(func, "_overloadpacket", None)
+    if (getattr(_IN_BOUNDARY, "on", False) and packet is not None
+            and packet.__name__ in _COLLECTIVES):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run(remat: bool, fn, lp, *args):
+    """``fn(lp, *args)`` for a layer's parameters ``lp``, under activation
+    checkpointing when ``remat``; while a mesh is armed the parameters are
+    gathered FSDP-style inside it (``sharding.gather_params``)."""
+    if sharding.armed():
+        body = fn
+
+        def fn(lp, *args):
+            return body(sharding.gather_params(lp), *args)
+    args = (lp, *args)
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        kw = {}
+        if flags.flag("remat_saveout"):
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_block_out)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
     return fn(*args)
 
 
@@ -187,37 +256,35 @@ def layer(blocks: dict, i: int) -> dict:
 # Full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 def _attn_block(lp, h, cfg, return_cache=False):
-    a_in = rmsnorm(h, lp["ln1"].to(torch.float32), cfg.rmsnorm_eps)
+    a_in = _block_input(rmsnorm(h, lp["ln1"].to(torch.float32), cfg.rmsnorm_eps))
     if return_cache:
         attn_out, kv = attention_forward(lp["attn"], a_in, cfg, return_cache=True)
     else:
         attn_out, kv = attention_forward(lp["attn"], a_in, cfg), None
-    h = h + attn_out
-    f_in = rmsnorm(h, lp["ln2"].to(torch.float32), cfg.rmsnorm_eps)
+    h = _boundary(h, attn_out)
+    f_in = _block_input(rmsnorm(h, lp["ln2"].to(torch.float32), cfg.rmsnorm_eps))
     if "moe" in lp:
         out, aux = moe_forward(lp["moe"], f_in, cfg.top_k)
     else:
         out, aux = ffn_forward(lp["ffn"], f_in), {}
-    return h + out, aux, kv
+    return _boundary(h, out), aux, kv
 
 
 def _rwkv_block(lp, h, state, cfg, use_kernel=None):
     x_tm, x_cm, s0 = state
-    tm_in = rmsnorm(h, lp["ln1"].to(torch.float32), cfg.rmsnorm_eps)
+    tm_in = _block_input(rmsnorm(h, lp["ln1"].to(torch.float32), cfg.rmsnorm_eps))
     y, x_tm_new, s_f = rwkv6_time_mix(lp["rwkv"], tm_in, x_tm, s0, cfg,
                                       use_kernel=use_kernel)
-    h = h + y
-    cm_in = rmsnorm(h, lp["ln2"].to(torch.float32), cfg.rmsnorm_eps)
+    h = _boundary(h, y)
+    cm_in = _block_input(rmsnorm(h, lp["ln2"].to(torch.float32), cfg.rmsnorm_eps))
     y2, x_cm_new = rwkv6_channel_mix(lp["rwkv"], cm_in, x_cm)
-    return h + y2, (x_tm_new, x_cm_new, s_f)
-
-
+    return _boundary(h, y2), (x_tm_new, x_cm_new, s_f)
 
 
 def _mamba_block(lp, h, state, cfg):
-    m_in = rmsnorm(h, lp["ln"].to(torch.float32), cfg.rmsnorm_eps)
+    m_in = _block_input(rmsnorm(h, lp["ln"].to(torch.float32), cfg.rmsnorm_eps))
     out, state_new = mamba2_forward(lp["mamba"], m_in, state, cfg)
-    return h + out, state_new
+    return _boundary(h, out), state_new
 
 
 def _mamba_stack(layers, h, cfg, remat=False):
@@ -225,7 +292,8 @@ def _mamba_stack(layers, h, cfg, remat=False):
     (n, B, K-1, C), ssm states (n, B, H, N, P)))."""
     b = h.shape[0]
     nh = cfg.d_inner // HEAD_P
-    s0 = torch.zeros((b, nh, cfg.ssm_state, HEAD_P), dtype=torch.float32, device=h.device)
+    s0 = sharding.zeros((b, nh, cfg.ssm_state, HEAD_P), "dp", "model", None, None,
+                        dtype=torch.float32, device=h.device)
     conv, ssm = [], []
     for lp in _unstack(layers):
         h, (c, s) = _run(remat, _mamba_block, lp, h, (None, s0), cfg)
@@ -269,7 +337,8 @@ def forward_blocks(blocks: dict, h: torch.Tensor, cfg, return_cache: bool = Fals
         b, _, d = h.shape
         nh, n = d // HEAD_SIZE, HEAD_SIZE
         x0 = h.new_zeros((b, d))
-        s0 = torch.zeros((b, nh, n, n), dtype=torch.float32, device=h.device)
+        s0 = sharding.zeros((b, nh, n, n), "dp", "model", None, None,
+                            dtype=torch.float32, device=h.device)
         states = []
         for lp in _unstack(blocks["layers"]):
             h, st = _run(remat, _rwkv_block, lp, h, (x0, x0, s0), cfg, use_kernel)
@@ -365,7 +434,7 @@ def _attn_block_decode(lp, h, k_cache, v_cache, cache_len, cfg):
 def _mamba_decode(layers, n: int, h, conv, ssm, cfg):
     conv_all, ssm_all = [], []
     for j in range(n):
-        lp = _index(layers, j)
+        lp = sharding.gather_params(_index(layers, j))
         m_in = rmsnorm(h, lp["ln"].to(torch.float32), cfg.rmsnorm_eps)
         out, (conv_n, ssm_n) = mamba2_decode_step(lp["mamba"], m_in, (conv[j], ssm[j]), cfg)
         h = h + out.to(h.dtype)
@@ -385,7 +454,8 @@ def decode_blocks(blocks: dict, h: torch.Tensor, cache: dict, cfg):
     if fam in ATTN_FAMILIES:
         k_all, v_all, drops = [], [], []
         for i in range(cfg.n_layers):
-            h, k_n, v_n, a = _attn_block_decode(layer(blocks, i), h, cache["k"][i],
+            h, k_n, v_n, a = _attn_block_decode(sharding.gather_params(layer(blocks, i)),
+                                                h, cache["k"][i],
                                                 cache["v"][i], cache_len, cfg)
             k_all.append(k_n)
             v_all.append(v_n)
@@ -399,7 +469,7 @@ def decode_blocks(blocks: dict, h: torch.Tensor, cache: dict, cfg):
     elif fam == "ssm":
         x_tm_all, x_cm_all, s_all = [], [], []
         for i in range(cfg.n_layers):
-            lp = layer(blocks, i)
+            lp = sharding.gather_params(layer(blocks, i))
             x_tm, x_cm = cache["x_tm"][i], cache["x_cm"][i]
             tm_in = rmsnorm(h, lp["ln1"].to(torch.float32), cfg.rmsnorm_eps)
             y, x_tm_n, s_n = rwkv6_time_mix_decode(lp["rwkv"], tm_in,
@@ -423,7 +493,8 @@ def decode_blocks(blocks: dict, h: torch.Tensor, cache: dict, cfg):
             h, conv_n, ssm_n = _mamba_decode(layer(blocks, gi), per_group, h,
                                              cache["group_conv"][gi],
                                              cache["group_ssm"][gi], cfg)
-            h, k_n, v_n, _ = _attn_block_decode(blocks["shared"], h, cache["k"][gi],
+            h, k_n, v_n, _ = _attn_block_decode(sharding.gather_params(blocks["shared"]),
+                                                h, cache["k"][gi],
                                                 cache["v"][gi], cache_len, cfg)
             g_conv.append(conv_n)
             g_ssm.append(ssm_n)
