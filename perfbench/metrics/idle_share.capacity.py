@@ -1,0 +1,8 @@
+"""idle_share.capacity: share of the traced window in which no kernel, copy
+or set ran on the device, serve cells offered more than the fleet can take
+(%)."""
+from perfbench.metrics._shared import idle_share_pct
+
+
+def read(ctx):
+    return idle_share_pct(ctx) if ctx.kind == "open_serve" else None
