@@ -18,13 +18,16 @@ operand, and
 package's one launch counter is :data:`LAUNCHES`: per CUDA entry point,
 the kernel launches since :func:`reset_launches`.  Each wrapper adds one
 (:func:`count_launch`, under a lock: replica threads launch at once) where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else.  Launches captured into a CUDA
+graph have not run: :func:`recording_launches` collects them for the
+capturing thread, and :func:`add_launches` counts them on each replay.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,9 +38,9 @@ import threading
 
 import torch
 
-__all__ = ["BuildError", "LAUNCHES", "bind", "build_all", "check", "count_launch",
-           "kernel_device", "load", "no_detach", "raise_on", "reset_launches",
-           "sm_count"]
+__all__ = ["BuildError", "LAUNCHES", "add_launches", "bind", "build_all", "check",
+           "count_launch", "kernel_device", "load", "no_detach", "raise_on",
+           "recording_launches", "reset_launches", "sm_count"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -58,6 +61,8 @@ LAUNCHES = {name: 0 for name in (
 # Replica threads of a threaded fleet launch at once: ``+= 1`` on a dict
 # entry is a read-modify-write that loses counts without the lock.
 _LAUNCH_LOCK = threading.Lock()
+# Per thread: the dict that :func:`recording_launches` collects into, if any.
+_RECORDING = threading.local()
 
 
 def reset_launches() -> None:
@@ -67,8 +72,33 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str) -> None:
+    recording = getattr(_RECORDING, "launches", None)
+    if recording is not None:
+        recording[name] = recording.get(name, 0) + 1
+        return
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
+
+
+def add_launches(counts: dict) -> None:
+    """Count ``{entry point: launches}`` at once (a graph's replay)."""
+    with _LAUNCH_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside, this thread's launches go to the yielded dict, not to
+    :data:`LAUNCHES`: a stream capture enqueues kernels that do not run.
+    Other threads count as usual."""
+    if getattr(_RECORDING, "launches", None) is not None:
+        raise RuntimeError("recording_launches does not nest")
+    _RECORDING.launches = recorded = {}
+    try:
+        yield recorded
+    finally:
+        _RECORDING.launches = None
 
 
 class BuildError(RuntimeError):

@@ -65,6 +65,7 @@ from ..compiler import compile_network
 from ..core.network import SNNSpec, gesture_net, init_state_shapes, optical_flow_net
 from ..core.pipeline import PipelineState
 from ..engine.cost import estimate_cost, estimate_multicore_cost
+from ..engine.graphs import RunGraphs, graphable
 from ..engine.inference import (
     EngineConfig,
     EngineLayer,
@@ -375,6 +376,8 @@ class CompiledSNN:
         self._sessions: list = []   # every StreamSession opened here
         self._device_engines: dict = {}   # device -> engine copied there
         self._analysis: Optional["AnalysisReport"] = None
+        # Whole-stream runs replayed as CUDA graphs (None: every run eager).
+        self._graphs = RunGraphs(engine) if graphable(engine) else None
 
     @property
     def device(self) -> torch.device:
@@ -434,9 +437,12 @@ class CompiledSNN:
         """Run a whole ``(T, B, H, W, C)`` binary event stream.
 
         ``events`` may be a tensor on any device or a numpy array; it is
-        moved to the deployment's device.
+        moved to the deployment's device.  On the card the fused backend
+        replays one CUDA graph per events shape (``engine/graphs.py``): the
+        same kernels and integers as the eager path, and fresh outputs on
+        every call.
         """
-        events = torch.as_tensor(events, device=self.device)
+        events = torch.as_tensor(events)
         if events.ndim != 5:
             raise ValueError(
                 f"expected events of shape (T, B, H, W, C); got "
@@ -444,6 +450,8 @@ class CompiledSNN:
                 "(events[:, None])")
         if self.target.backend == "reference":
             return run_reference(self.engine, events)
+        if self._graphs is not None:
+            return self._graphs.run(events)
         return run_engine(self.engine, events)
 
     # -- streaming ---------------------------------------------------------

@@ -290,3 +290,334 @@ def test_wide_fan_in_net_runs_on_cpu(k):
     assert bool((want.spike_counts.sum(dim=0) > 0).all())
     for a, b in ((got.readout, want.readout), (got.spike_counts, want.spike_counts)):
         assert_same(a, b)
+
+
+# ---------------------------------------------------------------------------
+# CompiledSNN.run's CUDA graphs (engine/graphs.py): the dispatch rule and the
+# cache on the CPU, with a stand-in for the capture; the graphs on the card.
+# ---------------------------------------------------------------------------
+def _small_compiled(backend="fused", device="cpu", **target):
+    from repro_torch import spidr
+    from repro_torch.core.network import init_params
+
+    spec = spidr_gesture.reduced(hw=(16, 16), timesteps=3)
+    params = init_params(torch.Generator().manual_seed(0), spec)
+    return spidr.compile(spec, params, spidr.DeployTarget(backend=backend, **target),
+                         device=device)
+
+
+def _on_fake_card(compiled):
+    """The same deployment with its engine labelled as on ``cuda:0``: what
+    the dispatch rule reads, built without a card."""
+    from repro_torch.spidr.compiled import CompiledSNN
+
+    engine = dataclasses.replace(compiled.engine, device=torch.device("cuda", 0))
+    return CompiledSNN(compiled.spec, compiled.target, engine)
+
+
+@pytest.mark.parametrize("case,engaged", [
+    ("cpu", False), ("card", True), ("card_torch", False), ("card_reference", False),
+    ("card_device_parallel", False)])
+def test_run_graph_engages_only_on_card_fused_one_device(monkeypatch, case, engaged):
+    """The graph path engages where the engine is on a CUDA device, on the
+    fused backend, with no layer spread over devices; never on the CPU."""
+    from repro_torch.engine import graphs
+
+    if case == "cpu":
+        compiled = _small_compiled()
+        assert not graphs.graphable(compiled.engine)
+        ev = torch.from_numpy(_events("gesture", batch=2)[:3])
+        assert compiled._graphs is None
+        out = compiled.run(ev)
+        assert_same(out.readout, E.run_engine(compiled.engine, ev).readout)
+        return
+    if case == "card_device_parallel":
+        monkeypatch.setattr(E, "_core_devices", lambda: [torch.device("cpu")] * 2)
+        compiled = _small_compiled(n_cores=2, device_parallel=True)
+        assert any(el.core_devs for el in compiled.engine.layers)
+    else:
+        backend = {"card": "fused", "card_torch": "torch",
+                   "card_reference": "reference"}[case]
+        compiled = _small_compiled(backend)
+    card = _on_fake_card(compiled)
+    assert graphs.graphable(card.engine) is engaged
+    assert (card._graphs is not None) is engaged
+
+
+class _StandInGraph:
+    """What ``RunGraphs`` needs of a captured graph, run eagerly on the CPU."""
+
+    def __init__(self, engine, launches):
+        self.engine, self.launches = engine, launches
+
+    def replay(self, events):
+        return E.run_engine(self.engine, events)
+
+
+def _stand_in_capture(engine, events):
+    """Records the launches a capture would (three B1 entries) into a
+    stand-in graph."""
+    import gc
+
+    from repro_torch.kernels._build import count_launch, recording_launches
+
+    assert not gc.isenabled(), "capture runs with the cycle collector paused"
+    with recording_launches() as launches:
+        for _ in range(3):
+            count_launch("fused_lif_gemm_int")
+    return _StandInGraph(engine, dict(launches))
+
+
+@pytest.fixture
+def fresh_registry():
+    from repro_torch import obs
+
+    obs.set_default_registry(obs.MetricsRegistry(enabled=True))
+    yield obs.default_registry()
+    obs.set_default_registry(obs.MetricsRegistry(enabled=False))
+
+
+def test_run_graphs_key_capture_on_second_call_and_count(fresh_registry):
+    """Keyed by shape, dtype and device; a shape runs eagerly on its first
+    call, is captured and replayed on its second, replayed after; counters
+    on the cache and in the registry; every call equal to the eager run."""
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import LAUNCHES
+
+    engine = _small_compiled().engine
+    cache = graphs.RunGraphs(engine, capture=_stand_in_capture)
+    a = torch.from_numpy(_events("gesture", batch=1)[:3])
+    a2 = torch.from_numpy(_events("gesture", batch=1, seed=5)[:3])
+    b = torch.from_numpy(_events("gesture", batch=2)[:3])
+    c = a.to(torch.int8)                      # same shape, another dtype
+    key = lambda x: (tuple(x.shape), x.dtype, engine.device)  # noqa: E731
+
+    before = LAUNCHES["fused_lif_gemm_int"]
+    for ev in (a, b, c, a2, a, a2):
+        assert_same(cache.run(ev).readout, E.run_engine(engine, ev).readout)
+    assert (cache.eager, cache.captures, cache.replays) == (3, 1, 3)
+    assert list(cache._graphs) == [key(a)] and cache._seen == {key(b), key(c)}
+    # The CPU launches no kernel; each replay adds the three the stand-in
+    # capture recorded, the capture itself none.
+    assert LAUNCHES["fused_lif_gemm_int"] - before == 3 * 3
+    cache.run(c)
+    assert (cache.captures, list(cache._graphs)) == (2, [key(a), key(c)])
+    counters = fresh_registry.to_dict()
+    assert counters["spidr_run_graph_captures_total"][0]["value"] == 2
+    assert counters["spidr_run_graph_replays_total"][0]["value"] == 4
+
+
+def test_run_graphs_past_the_bound_run_eagerly(monkeypatch):
+    """Cycling through more shapes than the bound never captures on every
+    call: the first ``MAX_GRAPHS`` shapes to repeat are captured once and
+    kept; every other shape runs eagerly, however often it comes back."""
+    from repro_torch.engine import graphs
+
+    monkeypatch.setattr(graphs, "MAX_GRAPHS", 2)
+    engine = _small_compiled().engine
+    cache = graphs.RunGraphs(engine, capture=_stand_in_capture)
+    shapes = [torch.from_numpy(_events("gesture", batch=n)[:3]) for n in (1, 2, 3)]
+    for _ in range(4):
+        for ev in shapes:
+            assert_same(cache.run(ev).readout, E.run_engine(engine, ev).readout)
+    assert (cache.captures, cache.replays, cache.eager) == (2, 6, 6)
+    assert [k[0][1] for k in cache._graphs] == [1, 2] and not cache._seen
+    monkeypatch.setattr(graphs, "_MAX_SEEN", 2)
+    cache = graphs.RunGraphs(engine, capture=_stand_in_capture)
+    for ev in shapes:                          # the third seen resets the memory
+        cache.run(ev)
+    assert len(cache._seen) == 1 and cache.eager == 3
+
+
+def test_run_graphs_hold_no_reference_cycle():
+    """A deployment's graphs go with its last reference, never later inside
+    the cycle collector (a graph freed there during another capture would
+    invalidate it); the collector is back on after a capture."""
+    import gc
+    import weakref
+
+    from repro_torch.engine.graphs import RunGraphs
+
+    card = _on_fake_card(_small_compiled())
+    cache = RunGraphs(_small_compiled().engine, capture=_stand_in_capture)
+    for _ in range(2):
+        cache.run(torch.from_numpy(_events("gesture", batch=1)[:3]))
+    assert cache.captures == 1 and gc.isenabled()
+    refs = [weakref.ref(card), weakref.ref(card._graphs), weakref.ref(cache)]
+    gc.disable()
+    try:
+        del card, cache
+        assert [r() for r in refs] == [None, None, None]
+    finally:
+        gc.enable()
+
+
+def test_run_graphs_counters_off_by_default():
+    from repro_torch import obs
+    from repro_torch.engine.graphs import RunGraphs
+
+    obs.set_default_registry(obs.MetricsRegistry(enabled=False))
+    cache = RunGraphs(_small_compiled().engine, capture=_stand_in_capture)
+    ev = torch.from_numpy(_events("gesture", batch=1)[:3])
+    for _ in range(3):
+        cache.run(ev)
+    assert (cache.eager, cache.captures, cache.replays) == (1, 1, 2)
+    assert "spidr_run_graph_replays_total" not in obs.default_registry().to_prometheus()
+
+
+def test_recording_launches_is_per_thread():
+    """A capture's launches are recorded for its own thread only: another
+    thread's launches meanwhile reach the counter, and nesting raises."""
+    import threading
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels._build import add_launches, count_launch, recording_launches
+
+    before = LAUNCHES["spike_gemm"]
+    with recording_launches() as rec:
+        count_launch("spike_gemm")
+        t = threading.Thread(target=count_launch, args=("spike_gemm",))
+        t.start()
+        t.join(timeout=10)
+        assert not t.is_alive()
+        with pytest.raises(RuntimeError, match="nest"):
+            with recording_launches():
+                pass
+    assert rec == {"spike_gemm": 1}
+    assert LAUNCHES["spike_gemm"] - before == 1
+    add_launches(rec)
+    assert LAUNCHES["spike_gemm"] - before == 2
+    count_launch("spike_gemm")
+    assert LAUNCHES["spike_gemm"] - before == 3
+
+
+def _card_deployment(net, cuda_device, t_block=1):
+    from repro_torch import spidr
+    from repro_torch.configs import spidr_gesture as g, spidr_optflow as f
+    from repro_torch.core.network import init_params
+
+    spec = g.CONFIG if net == "gesture" else f.CONFIG
+    params = init_params(torch.Generator().manual_seed(3), spec)
+    return spidr.compile(spec, params, spidr.DeployTarget(t_block=t_block),
+                         device=cuda_device)
+
+
+# gesture-run's and flow-run's batches.
+_CARD_SHAPES = {"gesture": (20, 4, 64, 64, 2), "flow": (10, 2, 288, 384, 2)}
+
+
+def _card_events(shape, seed, device, density=0.08):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.rand(shape, generator=g, device=device) < density).to(torch.float32)
+
+
+def _host(out):
+    return tuple(t.cpu() for t in (out.readout, out.spike_counts, out.input_counts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net,t_block", [("gesture", 1), ("flow", 1), ("gesture", 5)])
+def test_run_graph_on_card_equals_eager(cuda_device, net, t_block):
+    """Over calls with other inputs (eager, then capture and replays) every
+    result equals the eager run bit for bit, and the first replay the plain
+    PyTorch reference; an earlier call's tensors survive later calls; the
+    launch counter moves per call exactly as the eager path's."""
+    from repro_torch.kernels import LAUNCHES
+
+    compiled = _card_deployment(net, cuda_device, t_block)
+    assert compiled._graphs is not None
+    shape = _CARD_SHAPES[net]
+    n_weight = sum(el.kind in ("conv", "fc") for el in compiled.engine.layers)
+    kept = []
+    for i in range(5):
+        ev = _card_events(shape, 100 + i, cuda_device)
+        before = dict(LAUNCHES)
+        want = E.run_engine(compiled.engine, ev)
+        torch.cuda.synchronize()
+        eager = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        before = dict(LAUNCHES)
+        got = compiled.run(ev)
+        torch.cuda.synchronize()
+        assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == eager
+        name = "fused_lif_gemm_int" if t_block == 1 else "fused_lif_gemm_int_tblk"
+        assert eager[name] == n_weight * -(-shape[0] // t_block)
+        for a, b in zip(_host(got), _host(want)):
+            assert_same(a, b)
+        if i == 1:                             # the capture's replay
+            for a, b in zip(_host(got), _host(E.run_reference(compiled.engine, ev))):
+                assert_same(a, b)
+        kept.append((got, _host(want)))
+    assert int(kept[0][1][1].sum()) > 0
+    for got, want in kept:                     # nothing overwrote an earlier result
+        for a, b in zip(_host(got), want):
+            assert_same(a, b)
+    cache = compiled._graphs
+    assert (cache.eager, cache.captures, cache.replays) == (1, 1, 4)
+
+
+@pytest.mark.gpu
+def test_run_graph_on_card_captures_on_second_call_up_to_the_bound(cuda_device):
+    """Each new shape runs eagerly, is captured and replayed on its second
+    call and replayed on its third; past ``MAX_GRAPHS`` shapes a new one runs eagerly
+    on every call; host events replay the device events' graph.  Replays
+    equal the eager run and the plain PyTorch reference."""
+    from repro_torch.engine.graphs import MAX_GRAPHS
+
+    compiled = _card_deployment("gesture", cuda_device)
+    cache = compiled._graphs
+    for b in range(1, MAX_GRAPHS + 2):
+        for seed in (1, 2, 3):
+            ev = _card_events((4, b, 64, 64, 2), seed, cuda_device)
+            got = _host(compiled.run(ev))
+            for a, w in zip(got, _host(E.run_engine(compiled.engine, ev))):
+                assert_same(a, w)
+            if seed == 2:
+                for a, w in zip(got, _host(E.run_reference(compiled.engine, ev))):
+                    assert_same(a, w)
+    assert (cache.eager, cache.captures, cache.replays) == (MAX_GRAPHS + 3,
+                                                            MAX_GRAPHS, 2 * MAX_GRAPHS)
+    assert [k[0][1] for k in cache._graphs] == list(range(1, MAX_GRAPHS + 1))
+    ev = _card_events((4, 1, 64, 64, 2), 4, cuda_device)
+    host = compiled.run(ev.cpu())                          # host events: same graph
+    assert (cache.captures, cache.replays) == (MAX_GRAPHS, 2 * MAX_GRAPHS + 1)
+    for a, w in zip(_host(host), _host(E.run_engine(compiled.engine, ev))):
+        assert_same(a, w)
+
+
+@pytest.mark.gpu
+def test_run_graph_on_card_two_threads(cuda_device):
+    """Two threads, each on its own CUDA stream, call ``run`` on one
+    deployment and each gets its own inputs' answers."""
+    import threading
+
+    compiled = _card_deployment("gesture", cuda_device)
+    shape = _CARD_SHAPES["gesture"]
+    inputs = {w: [_card_events(shape, 10 * w + i, cuda_device) for i in range(6)]
+              for w in range(2)}
+    want = {w: [_host(E.run_engine(compiled.engine, ev)) for ev in evs]
+            for w, evs in inputs.items()}
+    for _ in range(2):                                     # eager, then the capture
+        compiled.run(inputs[0][0])
+    assert compiled._graphs.captures == 1
+    got, errors = {}, []
+
+    def work(w):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+                outs = [compiled.run(ev) for ev in inputs[w] for _ in range(3)]
+                got[w] = [_host(o) for o in outs]
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work, args=(w,)) for w in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+    for w in range(2):
+        for i, outs in enumerate(got[w][j:j + 3] for j in range(0, 18, 3)):
+            for out in outs:
+                for a, b in zip(out, want[w][i]):
+                    assert_same(a, b)
