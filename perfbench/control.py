@@ -28,36 +28,19 @@ def readings(workload: str, seed: int, *, calls: int, seconds: float, device,
     """``check.verdict`` of the control in the program's place: ``(correct,
     {name: {"value", "limit"}})``.  ``vmem_bits`` replaces the control's
     precision (a test puts the stated one there to see the path read 0)."""
-    from perfbench.harness import cell, check, inputs
-    from perfbench.harness import traffic as traffic_mod
+    from perfbench.harness import cell, check, found, inputs
 
     c = cell.resolve(cell.load_benchmark(), workload)
     config, mix = config or c["config"], traffic or c["traffic"]
+    judge = found.module("checks", mix["kind"])
     d = config["deploy"]
     vb = d["vmem_bits"] - 1 if vmem_bits is None else vmem_bits
     params = inputs.make_weights(config, seed, device)
-    if mix["kind"] == "closed_run":
-        pool = inputs.make_clips(config, mix, mix["pool"], config["timesteps"], seed, device)
-        ref = check.run_reference(config, params, pool, d["vmem_bits"], d["weight_bits"])
-        ctl = check.run_reference(config, params, pool, vb, d["weight_bits"])
-        batches = traffic_mod.batches(mix, seed)
-        last = max(ctl["readouts"])
-        answers = []
-        for i in range(calls):
-            j = i % len(batches)
-            idx = list(batches[j])
-            answers.append((j, ctl["readouts"][last][idx],
-                            ctl["out_counts"][:, :, idx].sum(dim=2),
-                            ctl["in_counts"][:, :, idx].sum(dim=2)))
-        return check.verdict(check.closed_run(answers, batches, ref))
-    at = sorted({l - 1 for l in mix["lengths"]})
-    clips = inputs.make_clips(config, mix, mix["pool"], max(mix["lengths"]), seed, device)
-    ref = check.run_reference(config, params, clips, d["vmem_bits"], d["weight_bits"], at)
-    ctl = check.run_reference(config, params, clips, vb, d["weight_bits"], at)
-    spikes = ctl["out_counts"].sum(dim=1).cumsum(dim=0)
-    streams = [(clip, length, ctl["readouts"][length - 1][clip], int(spikes[length - 1, clip]))
-               for _, clip, length in traffic_mod.schedule(mix, seed, seconds)]
-    return check.verdict(check.open_serve(streams, ref))
+    work = judge.work(config, mix, seed, seconds, device)
+    ref = judge.reference(config, mix, params, work, d["vmem_bits"], device)
+    ctl = judge.reference(config, mix, params, work, vb, device)
+    return check.verdict(judge.compare(judge.control_answers(ctl, work, calls), work, ref),
+                         judge.LIMITS)
 
 
 def main(argv=None) -> int:

@@ -1,17 +1,17 @@
 """One run of one cell: set up, measure the window, check, report.
 
-Everything a cell needs is found by name: the workload in
+Everything a cell needs is found by name (``found.py``): the workload in
 ``BENCHMARK.json``, its configuration file, its traffic file
-(``perfbench/traffic/<traffic>.json``), the reference the configuration
-names (``perfbench/reference/<name>.py``) and one reader per per-layer
-metric (``perfbench/metrics/<metric>.py``).  Adding a cell, a
-configuration, a mix or a metric adds files and entries; nothing here
-changes.
+(``traffic/<traffic>.json``), the loop and the check of the mix's kind
+(``loops/<kind>.py``, ``checks/<kind>.py``), the configuration's layer
+kinds, event generator and reference, and one reader per per-layer metric
+(``metrics/<metric>.py``).  Adding a cell, a configuration, a mix, a loop,
+a layer kind, an event generator or a metric adds files and entries;
+nothing here changes.
 """
 from __future__ import annotations
 
 import gc
-import importlib.util
 import json
 import math
 import sys
@@ -20,16 +20,11 @@ import types
 
 import torch
 
-from . import check, drivers, inputs, port, stats
+from . import check, found, inputs, port
 from . import trace as tracing
 from . import traffic as traffic_mod
+from .found import CellError
 from .setup_env import ROOT, forbidden_modules
-
-METRICS_DIR = ROOT / "perfbench" / "metrics"
-
-
-class CellError(RuntimeError):
-    """A run that cannot report: no card, a forbidden module, a bad cell."""
 
 
 def load_benchmark(path=None) -> dict:
@@ -58,14 +53,8 @@ def resolve(bench: dict, workload: str) -> dict:
 
 
 def reader(name: str):
-    """The per-layer metric ``name``'s reader: ``perfbench/metrics/<name>.py``'s ``read``."""
-    path = METRICS_DIR / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"perfbench_metric_{name}", path)
-    if spec is None or not path.exists():
-        raise CellError(f"no reader for per-layer metric {name!r} ({path})")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    """The per-layer metric ``name``'s reader: ``metrics/<name>.py``'s ``read``."""
+    return found.module("metrics", name).read
 
 
 def _device(require_chips: int, device):
@@ -84,21 +73,6 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def setup_serve(config: dict, mix: dict, params: list, seed: int, dev):
-    """A serve cell's deployment, warmed up on the tick's one shape by a fleet
-    that is then gone, and its clips as host arrays ``(N, T, H, W, C)``."""
-    clips = inputs.make_clips(config, mix, mix["pool"], max(mix["lengths"]), seed, dev)
-    clips_host = clips.transpose(0, 1).contiguous().cpu().numpy()
-    del clips
-    compiled = port.deploy(config, params, dev)
-    warm = port.serve(compiled, mix)
-    for i in range(mix["capacity"]):
-        warm.submit(clips_host[i % mix["pool"], :min(mix["lengths"])])
-    warm.drain()
-    warm.shutdown()
-    return compiled, clips_host
-
-
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, t_proc: float,
              device=None, bench=None, config=None, traffic=None, log=None) -> tuple:
     """One run.  Returns ``(result line dict, check table)``.
@@ -114,27 +88,20 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, t_proc: f
     config = config or c["config"]
     mix = traffic or c["traffic"]
     dev = _device(int(c["cell"]["chips"]), device)
-    kind = mix["kind"]
+    loop, judge = found.module("loops", mix["kind"]), found.module("checks", mix["kind"])
+    if trace:
+        seconds = min(seconds, tracing.TRACE_SECONDS)
     params = inputs.make_weights(config, seed, dev)
+    work = judge.work(config, mix, seed, seconds, dev)
+    if dev.type == "cuda":
+        # The generators' scratch goes back to the card, so that the reserved
+        # peak read below is what the program holds, not the inputs' cache.
+        torch.cuda.empty_cache()
     recorded = tracing.Spans() if trace else None
     span = tracing.annotate(recorded)
-    ctx = types.SimpleNamespace(kind=kind, config=config, traffic=mix, trace=None,
-                                port_kernels=port.kernel_names())
-
-    if kind == "closed_run":
-        pool = inputs.make_clips(config, mix, mix["pool"], config["timesteps"], seed, dev)
-        batches = traffic_mod.batches(mix, seed)
-        batch_dev = [pool[:, list(idx)].contiguous() for idx in batches]
-        compiled = port.deploy(config, params, dev)
-        for b in batch_dev[:2]:                    # the one shape the window uses
-            compiled.run(b).readout.cpu()
-        fleet = clips_host = schedule = None
-    elif kind == "open_serve":
-        compiled, clips_host = setup_serve(config, mix, params, seed, dev)
-        schedule = traffic_mod.schedule(mix, seed, seconds)
-        fleet = port.serve(compiled, mix)
-    else:
-        raise CellError(f"unknown traffic kind {kind!r}")
+    ctx = types.SimpleNamespace(kind=mix["kind"], config=config, traffic=mix, trace=None,
+                                port_kernels=port.kernel_names(), **work)
+    loop.setup(ctx, params, dev)
     _sync(dev)
 
     if dev.type == "cuda":
@@ -144,21 +111,18 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, t_proc: f
     if prof is not None:
         # The profiler's start takes seconds: it is set-up, outside the window.
         prof.__enter__()
-        seconds = min(seconds, tracing.TRACE_SECONDS)
-        schedule = None if schedule is None else traffic_mod.schedule(mix, seed, seconds)
         recorded.start()
     setup_s = time.monotonic() - t_proc
-    if kind == "closed_run":
-        rec = drivers.closed_run(compiled.run, batch_dev, seconds, span)
-    else:
-        rec = drivers.open_serve(fleet, clips_host, schedule, seconds, span, port.overloaded())
+    ctx.record = loop.window(ctx, seconds, span)
     _sync(dev)
     if prof is not None:
         recorded.stop()
         prof.__exit__(None, None, None)
     ctx.launches = port.launches() - launches0
 
-    memory_peak = int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda" else 0
+    # Reserved, not allocated: a CUDA graph's intermediates live in its private
+    # pool, which the allocated bytes leave out.
+    memory_peak = int(torch.cuda.max_memory_reserved(dev)) if dev.type == "cuda" else 0
     if prof is not None:
         t_red = time.monotonic()
         ctx.trace = tracing.reduce(prof, recorded)
@@ -166,34 +130,18 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, t_proc: f
         del prof
 
     # The program's state goes before the reference runs.
-    if fleet is not None:
-        fleet.shutdown()
-    del fleet, compiled
+    loop.free(ctx)
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    d = config["deploy"]
     t_ref = time.monotonic()
-    if kind == "closed_run":
-        ref = check.run_reference(config, params, pool, d["vmem_bits"], d["weight_bits"])
-        numbers = check.closed_run([(j, r, s, i) for j, _, _, r, s, i in rec.calls], batches, ref)
-        attempted, failed = len(rec.calls), 0
-    else:
-        at = sorted({l - 1 for l in mix["lengths"]})
-        clips = torch.from_numpy(clips_host).to(dev).transpose(0, 1)
-        ref = check.run_reference(config, params, clips, d["vmem_bits"], d["weight_bits"], at)
-        del clips
-        streams = [(clip, length, None if h is None or not h.done else h.readout,
-                    None if h is None or not h.done else h.request.spikes)
-                   for _, clip, length, h in rec.offered if h is not None]
-        numbers = check.open_serve(streams, ref)
-        attempted = len(rec.offered)
-        failed = sum(1 for *_, h in rec.offered if h is None or not h.done)
+    ctx.ref = judge.reference(config, mix, params, work, config["deploy"]["vmem_bits"], dev)
+    answers, attempted, failed = loop.answers(ctx)
+    numbers = judge.compare(answers, work, ctx.ref)
     log(f"reference in {time.monotonic() - t_ref:.1f} s")
-    correct, table = check.verdict(numbers)
+    correct, table = check.verdict(numbers, judge.LIMITS)
 
-    ctx.ref, ctx.batches, ctx.record = ref, (batches if kind == "closed_run" else None), rec
     if trace:
         metrics = {}
         for m in c["per_layer"]:
@@ -201,12 +149,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, t_proc: f
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
-        metrics = _end_to_end(kind, rec, mix, c["end_to_end"], setup_s)
+        metrics = _end_to_end(loop, ctx.record, mix, c["end_to_end"], setup_s)
     # Last, after the fleet's shutdown, the reference and the readers have
     # loaded what they load: nothing of JAX may be in the process that reports.
-    found = forbidden_modules()
-    if found:
-        raise CellError(f"forbidden modules loaded by the time the result was made: {found}")
+    loaded = forbidden_modules()
+    if loaded:
+        raise CellError(f"forbidden modules loaded by the time the result was made: {loaded}")
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
                    "count": int(c["cell"]["chips"]), "memory_peak_bytes": memory_peak}
@@ -221,32 +169,16 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, t_proc: f
     return result, table
 
 
-def _end_to_end(kind: str, rec, mix: dict, wanted: list, setup_s: float) -> dict:
-    """The end-to-end metrics.  A serve cell's tail is over every stream
-    offered: one shed, or admitted and never finished, counts as infinitely
-    late, so shedding cannot shorten it; a tail that lands on one cannot be
-    reported."""
-    values = {"setup_s": setup_s}
-    if kind == "closed_run":
-        lat = [t1 - t0 for _, t0, t1, *_ in rec.calls]
-        values["samples_per_s"] = len(rec.calls) * mix["batch"] / (rec.end - rec.start)
-        values["run_ms_p95"] = stats.percentile(lat, 95) * 1e3
-    else:
-        lat = [h.request.done_at - (rec.start + due) if h is not None and h.done else math.inf
-               for due, _, _, h in rec.offered]
-        done = [(length, h.request.done_at) for _, _, length, h in rec.offered
-                if h is not None and h.done]
-        if lat:
-            values["stream_ms_p95"] = stats.percentile(lat, 95) * 1e3
-        if done:
-            span = max(t for _, t in done) - (rec.start + rec.offered[0][0])
-            values["streams_per_s"] = len(done) / span
-            values["stream_steps_per_s"] = sum(length for length, _ in done) / span
+def _end_to_end(loop, rec, mix: dict, wanted: list, setup_s: float) -> dict:
+    """The end-to-end metrics: ``setup_s`` and what the loop reads off its
+    record.  A tail that lands on work shed or never finished is unbounded
+    and cannot be reported."""
+    values = {"setup_s": setup_s, **loop.end_to_end(rec, mix)}
     out = {}
     for m in wanted:
         if m["name"] in values:
             if not math.isfinite(values[m["name"]]):
                 raise CellError(f"{m['name']} is unbounded: more than 5 % of the offered "
-                                "streams were shed or never finished")
+                                "work was shed or never finished")
             out[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     return out

@@ -1,48 +1,28 @@
 """How ``correct`` is decided: the timed path's outputs against the reference.
 
-The reference (``perfbench/reference/<name>.py``) runs once the window has
-closed, the peak memory has been read and the program's state is freed,
-over the whole pool of samples or clips in blocks that fit.  Every answer
-the window produced is then compared, exactly:
-
-closed_run  each call's readout (rate counts ``(B, classes)`` or Vmem
-            ``(B, H, W, C)``) and its per-timestep, per-layer output and
-            input spike counts, against the reference's for the samples of
-            its batch (samples never interact inside the network).
-open_serve  each finished stream's readout and its all-layer spike total
-            against the reference's run of the same clip cut to the same
-            length; a stream admitted but never finished counts too.
-
-Each number compared has the limit 0: the deployment states integer
-arithmetic, so any difference is a wrong answer.
+The reference (``reference/<name>.py``, named by the configuration) runs
+once the window has closed, the peak memory has been read and the
+program's state is freed, over the whole pool of samples or clips in
+blocks that fit.  Every answer the window produced is then compared by the
+comparison of the mix's kind (``checks/<kind>.py``), which holds each
+number it compares to a limit of its own.  Imports nothing of the program.
 """
 from __future__ import annotations
 
-import importlib
-
 import torch
 
-REFERENCE_PACKAGE = "perfbench.reference"
-LIMITS = {"readout_mismatch": 0, "count_mismatch": 0, "spikes_mismatch": 0,
-          "unfinished": 0}
+from . import found, roofline
+
 BLOCK_BYTES = 1 << 29
 
 
 def reference(config: dict):
-    return importlib.import_module(f"{REFERENCE_PACKAGE}.{config['reference']}")
+    return found.module("reference", config["reference"])
 
 
 def _block(config: dict, n: int) -> int:
     """Samples per reference block: the widest spike matrix under BLOCK_BYTES."""
-    h, w = config["input_hw"]
-    widest = 1
-    for l in config["layers"]:
-        if l["kind"] == "conv":
-            widest = max(widest, l["kernel"] ** 2 * l["c_in"] * h * w)
-        elif l["kind"] == "pool":
-            h, w = h // l["window"], w // l["window"]
-        elif l["kind"] == "adaptive_pool":
-            h = w = l["target_hw"]
+    widest = max([1] + [m * k for _, m, k, _ in roofline.layer_gemms(config)])
     return max(1, min(n, 64, BLOCK_BYTES // (4 * widest)))
 
 
@@ -70,42 +50,7 @@ def run_reference(config: dict, params: list, clips: torch.Tensor, vmem_bits: in
                          for t in parts[0]["readouts"]}}
 
 
-def closed_run(calls: list, batches: list, ref: dict) -> dict:
-    """``calls``: ``(batch index, readout, spike counts (T, L), input counts (T, L))``."""
-    last = max(ref["readouts"])
-    want_readout = ref["readouts"][last]
-    readout_bad = count_bad = 0
-    for j, readout, spikes, inputs in calls:
-        idx = list(batches[j])
-        want = want_readout[idx]
-        got = torch.as_tensor(readout).cpu()
-        readout_bad += want.numel() if got.shape != want.shape else int((got != want).sum())
-        for got_c, key in ((spikes, "out_counts"), (inputs, "in_counts")):
-            want_c = ref[key][:, :, idx].sum(dim=2)
-            got_c = torch.as_tensor(got_c).cpu().to(torch.int64)
-            count_bad += (want_c.numel() if got_c.shape != want_c.shape
-                          else int((got_c != want_c).sum()))
-    return {"readout_mismatch": readout_bad, "count_mismatch": count_bad}
-
-
-def open_serve(streams: list, ref: dict) -> dict:
-    """``streams``: ``(clip, length, readout or None, spikes or None)``; None
-    where the stream never finished."""
-    cum_spikes = ref["out_counts"].sum(dim=1).cumsum(dim=0)   # (T, N)
-    readout_bad = spikes_bad = unfinished = 0
-    for clip, length, readout, spikes in streams:
-        if readout is None:
-            unfinished += 1
-            continue
-        want = ref["readouts"][length - 1][clip]
-        got = torch.as_tensor(readout).cpu()
-        readout_bad += want.numel() if got.shape != want.shape else int((got != want).sum())
-        spikes_bad += int(int(spikes) != int(cum_spikes[length - 1, clip]))
-    return {"readout_mismatch": readout_bad, "spikes_mismatch": spikes_bad,
-            "unfinished": unfinished}
-
-
-def verdict(numbers: dict) -> tuple:
+def verdict(numbers: dict, limits: dict) -> tuple:
     """``(correct, {name: {"value", "limit"}})``."""
-    table = {k: {"value": v, "limit": LIMITS[k]} for k, v in numbers.items()}
-    return all(v <= LIMITS[k] for k, v in numbers.items()), table
+    table = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
+    return all(v <= limits[k] for k, v in numbers.items()), table

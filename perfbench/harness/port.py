@@ -1,11 +1,13 @@
 """The system under test: the PyTorch and CUDA port, ``repro_torch``.
 
-The one module of the harness that imports the program.  It builds the
-program's network from a configuration file, deploys it as users do
+The one module of ``harness/`` that imports the program, inside its
+functions; the layer kinds (``layers/``) import it inside theirs, and the
+loops (``loops/``) reach it through here.  It builds the program's network
+from a configuration file through its layer kinds, deploys it as users do
 (``spidr.compile`` with ``DeployTarget``'s defaults but for the stated
-precision, core count and backend), serves it (``spidr.serve``), and
-reads the program's counter (``kernels.LAUNCHES``) and the names of its
-CUDA kernels.  It hands the program the benchmark's float weights and
+precision, core count and backend), serves it (``spidr.serve``), and reads
+the program's counter (``kernels.LAUNCHES``) and the names of its CUDA
+kernels.  It hands the program the benchmark's float weights and
 events and nothing else.
 """
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import pathlib
 import re
 
+from . import found
 from .setup_env import ROOT
 
 PACKAGE = "repro_torch"
@@ -20,34 +23,25 @@ CSRC = ROOT / "src" / PACKAGE / "kernels" / "csrc"
 _GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)\s*\(")
 
 
-def build_spec(config: dict):
-    """The program's ``SNNSpec`` for a configuration file."""
-    from repro_torch.core.layers import SpikingConvParams, SpikingDenseParams
-    from repro_torch.core.network import SNNLayer, SNNSpec
+def program(config: dict, params: list) -> tuple:
+    """The program's ``SNNSpec`` for a configuration file, and the float weights
+    laid out by the program's layers: each layer's kind (``layers/<kind>.py``)
+    gives its program layers and where its weights go."""
+    from repro_torch.core.network import SNNSpec
     from repro_torch.core.neuron import NeuronConfig
 
     n = config["neuron"]
     neuron = NeuronConfig(model=n["model"], reset=n["reset"], threshold=n["threshold"],
                           leak=n["leak"], leak_shift=n["leak_shift"])
-    layers = []
-    for l in config["layers"]:
-        kind = l["kind"]
-        if kind == "conv":
-            layers.append(SNNLayer("conv", l["c_in"], l["c_out"], conv=SpikingConvParams(
-                l["kernel"], l["kernel"], l["stride"], l["padding"], neuron)))
-        elif kind == "fc":
-            layers.append(SNNLayer("fc", l["c_in"], l["c_out"], fc=SpikingDenseParams(neuron)))
-        elif kind == "pool":
-            if l["window"] != 2:
-                raise ValueError("the program pools 2x2 windows only")
-            layers.append(SNNLayer("pool"))
-        elif kind == "adaptive_pool":
-            layers.append(SNNLayer("adaptive_pool", target_hw=l["target_hw"]))
-        else:
-            raise ValueError(f"unknown layer kind {kind!r}")
-    return SNNSpec(name=config["name"], input_hw=tuple(config["input_hw"]),
+    layers, weights = [], []
+    for l, w in zip(config["layers"], params):
+        for layer, weight in found.module("layers", l["kind"]).program(l, neuron, w):
+            layers.append(layer)
+            weights.append(weight)
+    spec = SNNSpec(name=config["name"], input_hw=tuple(config["input_hw"]),
                    in_channels=config["in_channels"], timesteps=config["timesteps"],
                    layers=tuple(layers), readout=config["readout"])
+    return spec, weights
 
 
 def deploy(config: dict, params: list, device):
@@ -57,7 +51,8 @@ def deploy(config: dict, params: list, device):
     d = config["deploy"]
     target = spidr.DeployTarget(weight_bits=d["weight_bits"], vmem_bits=d["vmem_bits"],
                                 n_cores=d["n_cores"], backend=d["backend"])
-    return spidr.compile(build_spec(config), params, target, device=device)
+    spec, weights = program(config, params)
+    return spidr.compile(spec, weights, target, device=device)
 
 
 def serve(compiled, traffic: dict):

@@ -11,6 +11,8 @@ threshold vector counted only where the deployment has one.
 """
 from __future__ import annotations
 
+from . import found
+
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 
@@ -33,20 +35,16 @@ def lif_gemm_ops(nnz: int, n: int) -> int:
 
 
 def layer_gemms(config: dict) -> list:
-    """``(kind, positions per sample, fan-in, c_out)`` of each weight layer."""
-    h, w = config["input_hw"]
+    """``(kind, positions per sample, fan-in, c_out)`` of each weight layer,
+    walking the frame through each layer's kind (``layers/<kind>.py``)."""
+    hw = tuple(config["input_hw"])
     out = []
     for l in config["layers"]:
-        if l["kind"] == "conv":
-            k, p, s = l["kernel"], l["padding"], l["stride"]
-            h, w = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
-            out.append(("conv", h * w, k * k * l["c_in"], l["c_out"]))
-        elif l["kind"] == "fc":
-            out.append(("fc", 1, l["c_in"], l["c_out"]))
-        elif l["kind"] == "pool":
-            h, w = h // l["window"], w // l["window"]
-        elif l["kind"] == "adaptive_pool":
-            h = w = l["target_hw"]
+        kind = found.module("layers", l["kind"])
+        g = kind.gemm(l, hw)
+        if g is not None:
+            out.append((l["kind"], *g))
+        hw = kind.out_hw(l, hw)
     return out
 
 

@@ -1,6 +1,8 @@
 """The general traffic generator: a mix's data file plus the seed -> work.
 
-Two kinds of mix, named by the file's ``kind``:
+A mix's ``kind`` names the loop that drives it (``loops/<kind>.py``) and
+the check that gives it its work (``checks/<kind>.py``).  The two kinds of
+today draw their work here:
 
 ``closed_run``  one caller in a closed loop: the next ``CompiledSNN.run``
                 starts when the last returned.  Batches of ``batch``

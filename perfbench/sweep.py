@@ -36,7 +36,7 @@ def main(argv=None) -> int:
     setup_env.configure()
     import torch
 
-    from perfbench.harness import cell, drivers, inputs, port, stats, traffic
+    from perfbench.harness import cell, found, inputs, port, stats, traffic
     from perfbench.harness import trace as tracing
 
     c = cell.resolve(cell.load_benchmark(), args.workload)
@@ -48,16 +48,17 @@ def main(argv=None) -> int:
         print("sweep: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    loop, judge = found.module("loops", "open_serve"), found.module("checks", "open_serve")
     params = inputs.make_weights(config, args.seed, dev)
-    compiled, clips_host = cell.setup_serve(config, mix, params, args.seed, dev)
+    clips_host = judge.work(config, mix, args.seed, args.seconds, dev)["clips_host"]
+    compiled = loop.setup_serve(config, mix, params, clips_host, dev)
     print(json.dumps({"setup_s": time.monotonic() - T_PROC,
                       "card": torch.cuda.get_device_name(dev)}), flush=True)
     span = tracing.annotate(None)
     for rate in (float(r) for r in args.rates.split(",")):
         fleet = port.serve(compiled, mix)
         sched = traffic.schedule(mix, args.seed, args.seconds, rate)
-        rec = drivers.open_serve(fleet, clips_host, sched, args.seconds, span,
-                                 port.overloaded())
+        rec = loop.drive(fleet, clips_host, sched, args.seconds, span, port.overloaded())
         fleet.shutdown()
         done = [h.request.done_at - (rec.start + due) for due, _, _, h in rec.offered
                 if h is not None and h.done]

@@ -8,7 +8,7 @@ import sys
 import pytest
 import torch
 
-from perfbench.harness import check, inputs, port, setup_env, traffic
+from perfbench.harness import found, inputs, port, setup_env, traffic
 
 ROOT = setup_env.ROOT
 
@@ -35,13 +35,22 @@ def test_no_result_with_only_the_benchmarks_files(tmp_path):
 
 
 def test_benchmark_json_names_files_that_exist():
+    """Every name a cell resolves has its file: configuration, mix, the mix's
+    loop and check, each layer kind, the event generator, the reference, each
+    per-layer metric."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     for c in bench["configs"]:
-        assert json.loads((ROOT / c["file"]).read_text())["name"] == c["name"]
+        config = json.loads((ROOT / c["file"]).read_text())
+        assert config["name"] == c["name"]
+        for layer in config["layers"]:
+            assert found.module("layers", layer["kind"]).program
+        assert found.module("events", config["events"]).clips
+        assert found.module("reference", config["reference"]).run
     for w in bench["workloads"]:
-        assert traffic.load(w["traffic"])["kind"] in ("closed_run", "open_serve")
+        kind = traffic.load(w["traffic"])["kind"]
+        assert found.module("loops", kind).window and found.module("checks", kind).compare
     for m in bench["per_layer"]:
-        assert (ROOT / "perfbench" / "metrics" / f"{m['name']}.py").exists(), m["name"]
+        assert found.module("metrics", m["name"]).read, m["name"]
 
 
 @pytest.mark.gpu
@@ -52,11 +61,12 @@ def test_program_equals_reference_at_the_timed_size(cuda_device, workload):
 
     c = cell.resolve(cell.load_benchmark(), workload)
     config, mix = c["config"], c["traffic"]
+    judge = found.module("checks", mix["kind"])
     params = inputs.make_weights(config, 77, cuda_device)
-    pool = inputs.make_clips(config, mix, mix["pool"], config["timesteps"], 77, cuda_device)
-    idx = list(traffic.batches(mix, 77)[0])
-    out = port.deploy(config, params, cuda_device).run(pool[:, idx].contiguous())
-    ref = check.run_reference(config, params, pool, 7, 4)
-    nums = check.closed_run([(0, out.readout.cpu(), out.spike_counts.cpu(),
-                              out.input_counts.cpu())], [tuple(idx)], ref)
+    work = judge.work(config, mix, 77, 1.0, cuda_device)
+    idx = list(work["batches"][0])
+    out = port.deploy(config, params, cuda_device).run(work["pool"][:, idx].contiguous())
+    ref = judge.reference(config, mix, params, work, 7, cuda_device)
+    nums = judge.compare([(0, out.readout.cpu(), out.spike_counts.cpu(),
+                           out.input_counts.cpu())], work, ref)
     assert nums == {"readout_mismatch": 0, "count_mismatch": 0}

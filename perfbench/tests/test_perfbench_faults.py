@@ -110,33 +110,34 @@ def test_altered_stream_answer_is_caught(workload, monkeypatch):
 
 def _serve_record(late_ms, shed):
     """100 streams of 10 steps due at 0, finished ``late_ms`` later; ``shed`` not admitted."""
-    from perfbench.harness.drivers import ServeRecord
+    from perfbench.harness import found
 
     offered = []
     for i, ms in enumerate(late_ms):
         h = None if i in shed else types.SimpleNamespace(
             done=True, request=types.SimpleNamespace(done_at=ms / 1e3))
         offered.append((0.0, i, 10, h))
-    return ServeRecord(0.0, 1.0, offered, [], [], [], True)
+    return found.module("loops", "open_serve").ServeRecord(0.0, 1.0, offered, [], [], [], True)
 
 
 def test_shed_streams_count_in_the_tail():
     """A shed stream is infinitely late: shedding the fastest five of 100 raises
     the tail (96 ms over the rest alone, 100 ms over all); a sixth leaves it
     unbounded, and the run reports no tail at all."""
-    from perfbench.harness import cell
+    from perfbench.harness import cell, found
 
+    loop = found.module("loops", "open_serve")
     wanted = [{"name": "stream_ms_p95", "unit": "ms"}, {"name": "stream_steps_per_s",
                                                          "unit": "steps/s"}]
     late = list(range(1, 101))
-    out = cell._end_to_end("open_serve", _serve_record(late, set()), {}, wanted, 1.0)
+    out = cell._end_to_end(loop, _serve_record(late, set()), {}, wanted, 1.0)
     assert out["stream_ms_p95"]["value"] == pytest.approx(95.0)
     assert out["stream_steps_per_s"]["value"] == pytest.approx(1000 / 0.1)
-    out = cell._end_to_end("open_serve", _serve_record(late, set(range(5))), {}, wanted, 1.0)
+    out = cell._end_to_end(loop, _serve_record(late, set(range(5))), {}, wanted, 1.0)
     assert out["stream_ms_p95"]["value"] == pytest.approx(100.0)
     assert out["stream_steps_per_s"]["value"] == pytest.approx(950 / 0.1)
     with pytest.raises(cell.CellError, match="stream_ms_p95 is unbounded"):
-        cell._end_to_end("open_serve", _serve_record(late, set(range(6))), {}, wanted, 1.0)
+        cell._end_to_end(loop, _serve_record(late, set(range(6))), {}, wanted, 1.0)
 
 
 class _SlowFleet:
@@ -168,13 +169,14 @@ def test_every_scheduled_stream_is_offered_and_none_shed():
     """A tick that overruns the window's end still offers the streams due
     before it, and an admission bound that holds the whole schedule sheds
     none: every run offers, and finishes, the same work."""
-    from perfbench.harness import drivers, traffic
+    from perfbench.harness import found, traffic
     from perfbench.harness.trace import annotate
 
     mix = {"rate": 60, "lengths": [1], "pool": 2}
     sched = traffic.schedule(mix, 7, 0.5)
     clips = np.zeros((2, 1))
-    rec = drivers.open_serve(_SlowFleet(0.2, len(sched)), clips, sched, 0.5, annotate(None),
-                             OverflowError, drain_s=30.0)
+    rec = found.module("loops", "open_serve").drive(
+        _SlowFleet(0.2, len(sched)), clips, sched, 0.5, annotate(None), OverflowError,
+        drain_s=30.0)
     assert len(rec.offered) == len(sched) == 30
     assert all(h is not None and h.done for *_, h in rec.offered) and rec.drained

@@ -9,6 +9,7 @@ import types
 from perfbench.harness import setup_env
 
 BENCH = setup_env.ROOT / "perfbench"
+FOUND = ("reference", "checks", "events", "loops", "layers")
 
 
 def _imported_tops(path: pathlib.Path) -> set:
@@ -38,14 +39,25 @@ def test_no_source_of_the_benchmark_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for path in (BENCH / "reference").rglob("*.py"):
-        assert "repro_torch" not in _imported_tops(path), path
-    code = ("import sys; sys.path.insert(0, %r); import perfbench.reference.snn_int, "
+    """The reference, the checks, the event generators and the metrics import
+    nothing of the program; loading them, ``harness/check.py``, ``control.py``,
+    the loops and the layer kinds (which reach the program only inside their
+    functions) loads nothing of it either."""
+    for folder in ("reference", "checks", "events", "metrics"):
+        for path in (BENCH / folder).rglob("*.py"):
+            assert "repro_torch" not in _imported_tops(path), path
+    code = ("import sys; sys.path.insert(0, %r); from perfbench.harness import setup_env; "
+            "setup_env.configure(); import perfbench.reference.snn_int, "
             "perfbench.harness.check, perfbench.control; "
-            "print(sorted({m.split('.')[0] for m in sys.modules}))" % str(setup_env.ROOT))
+            "from perfbench.harness import found; "
+            "[found.module(p.parent.name, p.stem) for d in %r "
+            "for p in sorted((found.BENCH / d).glob('*.py')) if p.stem != '__init__']; "
+            "print(sorted({m.split('.')[0] for m in sys.modules}))"
+            % (str(setup_env.ROOT), FOUND))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, check=True)
     tops = set(json.loads(out.stdout.replace("'", '"')))
+    assert "perfbench_checks_closed_run" in tops
     assert not tops & {"repro_torch", *setup_env.FORBIDDEN}
 
 

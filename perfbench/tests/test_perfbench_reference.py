@@ -10,7 +10,8 @@ def _port_run(config, params, events, weight_bits, vmem_bits):
     from repro_torch import spidr
 
     target = spidr.DeployTarget(weight_bits=weight_bits, vmem_bits=vmem_bits, backend="torch")
-    out = spidr.compile(port.build_spec(config), params, target, device="cpu").run(events)
+    spec, weights = port.program(config, params)
+    out = spidr.compile(spec, weights, target, device="cpu").run(events)
     return out.readout, out.spike_counts, out.input_counts
 
 
